@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases (any failure raises, so the script exits non-zero and never
+prints its final line):
+
+1. device: require CUDA and compute capability 9.0; print the card's
+   name and power limit (nvidia-smi), torch and CUDA versions; turn
+   TF32 off for matmul and cuDNN;
+2. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
+   (one nvcc per source, all started together) and load the library;
+3. kernels against their plain PyTorch versions on the card, at the
+   main path's shapes and at small, ragged and bf16 shapes;
+4. the main path at survey width: ``solve("deconvolve", ...)`` on
+   10 000 simulated 41x41 stamps with J = 4 starlet scales; the launch
+   counters, reset just before, must show every kernel on the path;
+   then one more chunk of its iteration runs under torch.profiler, for
+   the device time of each part and the device's idle share;
+5. the same solve at n = 256 on the card and on the CPU (plain
+   versions, pocketfft), cost trajectories compared;
+6. times from CUDA events (median of 30 runs after warm-up) for each
+   kernel, its plain version and, where one exists, the one PyTorch
+   call computing the same function, beside the memory/compute bound.
+
+Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``.  The whole report also goes to
+``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or of the JAX
+package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+MAIN_N, STAMP, SCALES = 10_000, 41, 4
+MAIN_ITERS, MAIN_CHUNK = 60, 12
+PARITY_N, PARITY_ITERS, PARITY_CHUNK = 256, 24, 8
+# fp32: kernel and plain version differ only in the order of summation
+# and FMA contraction; bf16: one rounding of the output
+TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# card against CPU, cost trajectories of the whole solve: cuFFT and
+# pocketfft round differently, and the reductions sum in another order
+PARITY_RTOL = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------- 1
+def device_phase(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise SystemExit(f"chip_smoke: needs compute capability 9.0 "
+                         f"(Hopper), found {cap}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+# ----------------------------------------------------------------- 2
+def build_phase():
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    path = common.build_library()
+    common.library()
+    secs = time.perf_counter() - t0
+    log(f"build: {path.name} in {secs:.2f} s")
+    build_log = Path(str(path) + ".log")
+    if build_log.exists():
+        for line in build_log.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                log(f"  {line.strip()}")
+    return secs
+
+
+# ----------------------------------------------------------------- 3
+def compare(name, got, want, dtype_name):
+    tol = TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                             f"{tuple(w.shape)}")
+    if not bool(g.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (g - w).abs()
+    bad = err > tol["atol"] + tol["rtol"] * w.abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
+                             f"max abs err {max_err:.3e} ({tol})")
+    log(f"  {name}: max abs err {max_err:.3e}")
+    return max_err
+
+
+def kernel_phase(torch):
+    from repro_torch.kernels.condat_elwise.ops import (condat_dual,
+                                                       condat_primal)
+    from repro_torch.kernels.starlet2d.ops import smooth
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dev = "cuda"
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    errs = {"starlet2d.smooth": 0.0, "condat_elwise.primal": 0.0,
+            "condat_elwise.dual": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape, dtype, scales in (((MAIN_N, STAMP, STAMP), f32, range(4)),
+                                 ((100, STAMP, STAMP), bf16, range(4)),
+                                 ((7, 13, 13), f32, (3,)),
+                                 ((7, 13, 13), bf16, (3,))):
+        x = randn(shape, dtype)
+        for j in scales:
+            got = smooth(x, scale=j)
+            want = smooth(x, scale=j, use_kernel=False)
+            torch.cuda.synchronize()
+            e = compare(f"smooth {tuple(shape)} {dtype} j={j}", got, want,
+                        str(dtype).split(".")[1])
+            if shape[0] == MAIN_N:
+                errs["starlet2d.smooth"] = max(errs["starlet2d.smooth"], e)
+    for shape, dtype in (((MAIN_N, STAMP, STAMP), f32),
+                         ((130, 21, 21), bf16)):
+        X, Ua, gr = (randn(shape, dtype) for _ in range(3))
+        tau = torch.tensor(0.31, device=dev)
+        dn = str(dtype).split(".")[1]
+        got = condat_primal(X, Ua, gr, tau)
+        want = condat_primal(X, Ua, gr, tau, use_kernel=False)
+        torch.cuda.synchronize()
+        e = compare(f"primal {tuple(shape)} {dtype}", got, want, dn)
+        xn, xb = condat_primal(X, Ua, gr, tau, with_xbar=True)
+        rn, rb = condat_primal(X, Ua, gr, tau, with_xbar=True,
+                               use_kernel=False)
+        torch.cuda.synchronize()
+        e = max(e, compare(f"primal+xbar X_new {tuple(shape)} {dtype}",
+                           xn, rn, dn),
+                compare(f"primal+xbar X_bar {tuple(shape)} {dtype}",
+                        xb, rb, dn))
+        if shape[0] == MAIN_N:
+            errs["condat_elwise.primal"] = e
+    for shape, dtype in (((SCALES, MAIN_N, STAMP, STAMP), f32),
+                         ((3, 100, STAMP, STAMP), bf16)):
+        U, Cn, Co = (randn(shape, dtype) for _ in range(3))
+        W = torch.rand(shape[:2] + (1, 1), generator=g,
+                       device=dev).to(dtype)
+        sig = torch.tensor(0.47, device=dev)
+        got = condat_dual(U, Cn, Co, W, sig)
+        want = condat_dual(U, Cn, Co, W, sig, use_kernel=False)
+        torch.cuda.synchronize()
+        e = compare(f"dual {tuple(shape)} {dtype}", got, want,
+                    str(dtype).split(".")[1])
+        if shape[1] == MAIN_N:
+            errs["condat_elwise.dual"] = e
+    return errs
+
+
+# ----------------------------------------------------------------- 4
+def main_path_phase(torch):
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
+                                                          condat_primal_fwd)
+    from repro_torch.kernels.starlet2d.kernel import smooth_fwd
+
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    torch.cuda.synchronize()
+    syncs_at = []
+
+    def progress(event):
+        syncs_at.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    for fn in (smooth_fwd, condat_primal_fwd, condat_dual_fwd):
+        fn.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            sol = solve("deconvolve", data.Y, data.psfs,
+                        cfg=SolverConfig(mode="sparse", n_scales=SCALES),
+                        max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
+                        cost_every="chunk", tol=1e-5, progress_fn=progress)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = {"starlet2d.smooth": smooth_fwd.launches,
+                "condat_elwise.primal": condat_primal_fwd.launches,
+                "condat_elwise.dual": condat_dual_fwd.launches}
+    it = sol.log.iters_run
+    log(f"main path: n={MAIN_N} J={SCALES} iters_run={it} "
+        f"converged_at={sol.log.converged_at} wall {wall:.2f} s, "
+        f"launches {launches}")
+    if launches["condat_elwise.primal"] != it or \
+            launches["condat_elwise.dual"] != it:
+        raise AssertionError(f"primal/dual launches {launches} != "
+                             f"iters_run {it}")
+    if launches["starlet2d.smooth"] < 11 * it + 4:
+        raise AssertionError(f"starlet launches {launches} < 11 * {it} + 4")
+    costs = sol.log.costs
+    evaluated = [costs[i] for i in range(len(costs))
+                 if (i + 1) % MAIN_CHUNK == 0 or i == len(costs) - 1]
+    if not all(math.isfinite(c) for c in evaluated):
+        raise AssertionError(f"non-finite evaluated cost: {evaluated}")
+    if not evaluated[-1] < evaluated[0]:
+        raise AssertionError(f"cost did not fall: {evaluated}")
+    x = torch.as_tensor(sol.x, device="cuda")
+    mse_dec = float(torch.mean((x - data.X_true) ** 2))
+    mse_obs = float(torch.mean((data.Y - data.X_true) ** 2))
+    if not mse_dec < mse_obs:
+        raise AssertionError(f"deconvolved MSE {mse_dec:.3e} not below "
+                             f"observation MSE {mse_obs:.3e}")
+    # each chunk's time runs to its host sync, which waits for the card
+    chunk_ms = [t * 1e3 for t in sol.log.times[MAIN_CHUNK::MAIN_CHUNK]]
+    ms_per_iter = statistics.median(chunk_ms) if chunk_ms else None
+    steady = [b - a for a, b in zip(syncs_at, syncs_at[1:])]
+    syncs_per_chunk = statistics.median(steady) if steady else None
+    log(f"main path: evaluated costs {evaluated[0]:.6g} -> "
+        f"{evaluated[-1]:.6g}; MSE deconvolved {mse_dec:.3e} vs observed "
+        f"{mse_obs:.3e}; {ms_per_iter} ms/iteration (median over chunks "
+        f"after the first); host syncs per chunk {syncs_per_chunk} "
+        f"(torch sync debug mode)")
+    return {"n": MAIN_N, "iters_run": it, "launches": launches,
+            "ms_per_iter": ms_per_iter, "syncs_per_chunk": syncs_per_chunk,
+            "wall_s": wall, "cost_first": evaluated[0],
+            "cost_last": evaluated[-1], "mse_deconvolved": mse_dec,
+            "mse_observed": mse_obs}, sol.bundle
+
+
+# ---------------------------------------------------------------- 4b
+# kernel-name fragments -> the part of the iteration they belong to
+PARTS = (("starlet2d.smooth", ("starlet_smooth",)),
+         ("condat_elwise.primal", ("condat_primal",)),
+         ("condat_elwise.dual", ("condat_dual",)),
+         ("fft", ("fft", "FFT")))
+
+
+def profile_phase(torch, bundle):
+    """One chunk of the main path's iteration, continued from its final
+    state, under ``torch.profiler``: device time per iteration for each
+    part (the three kernels, cuFFT, the rest), and the device's idle
+    share of the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.deconvolve import make_light_step_fn
+    light = make_light_step_fn(SolverConfig(mode="sparse", n_scales=SCALES))
+    d, rep = bundle.data, bundle.replicated
+    d = light(d, rep, ())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(MAIN_CHUNK):
+            d = light(d, rep, ())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {name: 0.0 for name, _ in PARTS}
+    parts["other"] = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        part = next((name for name, keys in PARTS
+                     if any(k in ev.key for k in keys)), "other")
+        parts[part] += ms
+    busy = sum(parts.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    per_iter = {k: v / MAIN_CHUNK for k, v in parts.items()}
+    out = {"iters": MAIN_CHUNK, "wall_ms_per_iter": wall_ms / MAIN_CHUNK,
+           "device_ms_per_iter": busy / MAIN_CHUNK,
+           "idle_share": max(0.0, 1.0 - busy / wall_ms),
+           "device_ms_per_iter_by_part": per_iter}
+    log(f"profile: {json.dumps(out)}")
+    return out
+
+
+# ----------------------------------------------------------------- 5
+def parity_phase(torch):
+    import numpy as np
+
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    data = simulate(PARITY_N, torch.Generator().manual_seed(5),
+                    stamp=STAMP, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sol = solve("deconvolve", data.Y, data.psfs,
+                    cfg=SolverConfig(mode="sparse", n_scales=SCALES),
+                    device=dev, max_iter=PARITY_ITERS, chunk=PARITY_CHUNK,
+                    cost_every="chunk", tol=1e-5)
+        runs[dev] = sol
+    c_gpu = np.asarray(runs["cuda"].log.costs)
+    c_cpu = np.asarray(runs["cpu"].log.costs)
+    if runs["cuda"].log.iters_run != runs["cpu"].log.iters_run:
+        raise AssertionError("iters_run differs between card and CPU")
+    fin = np.isfinite(c_cpu)
+    if not np.array_equal(fin, np.isfinite(c_gpu)):
+        raise AssertionError("finite cost entries differ")
+    gap = float(np.max(np.abs(c_gpu[fin] - c_cpu[fin]) / np.abs(c_cpu[fin])))
+    x_gap = float(np.max(np.abs(runs["cuda"].x - runs["cpu"].x)))
+    log(f"card vs CPU at n={PARITY_N}: max relative cost gap {gap:.3e} "
+        f"(rtol {PARITY_RTOL}), max abs x gap {x_gap:.3e}")
+    if not gap <= PARITY_RTOL:
+        raise AssertionError(f"card/CPU cost gap {gap} > {PARITY_RTOL}")
+    return {"n": PARITY_N, "max_rel_cost_gap": gap, "max_abs_x_gap": x_gap}
+
+
+# ----------------------------------------------------------------- 6
+def time_ms(torch, fn, reps=30, warmup=3):
+    """Median of ``reps`` single-call times from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing_phase(torch):
+    from repro_torch.kernels.condat_elwise.ops import (condat_dual,
+                                                       condat_primal)
+    from repro_torch.kernels.starlet2d.ops import smooth
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dev = "cuda"
+    out = {}
+
+    x = torch.randn((MAIN_N, STAMP, STAMP), generator=g, device=dev)
+    elems = x.numel()
+    by_scale = {}
+    lib_err = 0.0
+    for j in range(SCALES):
+        conv = torch.nn.Conv2d(1, 1, 5, dilation=2 ** j, padding=2 * 2 ** j,
+                               padding_mode="circular", bias=False).to(dev)
+        taps = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev)
+        with torch.no_grad():
+            conv.weight.copy_((taps[:, None] * taps[None, :] / 256)[None, None])
+        x4 = x[:, None]
+        with torch.no_grad():
+            lib_err = max(lib_err, float(
+                (conv(x4)[:, 0] - smooth(x, scale=j)).abs().max()))
+            by_scale[j] = {
+                "ms": time_ms(torch, lambda: smooth(x, scale=j)),
+                "plain_ms": time_ms(torch, lambda: smooth(
+                    x, scale=j, use_kernel=False)),
+                "library_ms": time_ms(torch, lambda: conv(x4))}
+    t_bound, by = bound(2 * elems * 4, 18 * elems)
+    out["starlet2d.smooth"] = {
+        **{k: statistics.mean(v[k] for v in by_scale.values())
+           for k in ("ms", "plain_ms", "library_ms")},
+        "bound_ms": t_bound, "bound_by": by,
+        "ms_by_scale": {str(j): v["ms"] for j, v in by_scale.items()},
+        "library_max_abs_err": lib_err}
+
+    X, Ua, gr = (torch.randn((MAIN_N, STAMP, STAMP), generator=g, device=dev)
+                 for _ in range(3))
+    tau = torch.tensor(0.31, device=dev)
+    t_bound, by = bound(4 * elems * 4, 5 * elems)
+    out["condat_elwise.primal"] = {
+        "ms": time_ms(torch, lambda: condat_primal(X, Ua, gr, tau)),
+        "plain_ms": time_ms(torch, lambda: condat_primal(
+            X, Ua, gr, tau, use_kernel=False)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by}
+    del X, Ua, gr
+
+    shape = (SCALES, MAIN_N, STAMP, STAMP)
+    U, Cn, Co = (torch.randn(shape, generator=g, device=dev)
+                 for _ in range(3))
+    W = torch.rand(shape[:2] + (1, 1), generator=g, device=dev)
+    sig = torch.tensor(0.47, device=dev)
+    m = U.numel()
+    t_bound, by = bound(4 * m * 4 + W.numel() * 4, 6 * m)
+    out["condat_elwise.dual"] = {
+        "ms": time_ms(torch, lambda: condat_dual(U, Cn, Co, W, sig)),
+        "plain_ms": time_ms(torch, lambda: condat_dual(
+            U, Cn, Co, W, sig, use_kernel=False)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by}
+    return out
+
+
+KERNELS = {
+    "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
+                         "src/repro/kernels/starlet2d/kernel.py:45"),
+    "condat_elwise.primal": ("src/repro_torch/csrc/condat_elwise.cu",
+                             "src/repro/kernels/condat_elwise/kernel.py:65"),
+    "condat_elwise.dual": ("src/repro_torch/csrc/condat_elwise.cu",
+                           "src/repro/kernels/condat_elwise/kernel.py:91"),
+}
+
+
+def main() -> int:
+    import torch
+    smi = device_phase(torch)
+    # the port must be importable from this checkout (fails when the
+    # script stands alone)
+    import repro_torch  # noqa: F401
+    report = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    log("== build")
+    report["build_s"] = build_phase()
+    log("== kernels against their plain versions")
+    errs = kernel_phase(torch)
+    log("== main path")
+    report["main_path"], bundle = main_path_phase(torch)
+    log("== where the time of one iteration goes (torch.profiler)")
+    report["profile"] = profile_phase(torch, bundle)
+    del bundle
+    log("== card against CPU")
+    report["parity"] = parity_phase(torch)
+    log("== timings (CUDA events, median of 30)")
+    times = timing_phase(torch)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": report["main_path"]["launches"][name],
+                 "max_abs_err": errs[name], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                 "kernel_ms": t["ms"]}
+        entry.update({k: v for k, v in t.items() if k not in entry})
+        kernels.append(entry)
+        print(json.dumps({"kernel": entry}), flush=True)
+    report["kernels"] = kernels
+    log(f"main path: {report['main_path']['ms_per_iter']} ms/iteration at "
+        f"n={MAIN_N}, {report['main_path']['syncs_per_chunk']} host syncs "
+        f"per chunk")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of ``repro`` for one NVIDIA Hopper card.
+
+The JAX package ``repro`` stays the reference; this package mirrors its
+layout (``kernels/``, ``imaging/``, ``core/``) so each module has an
+obvious counterpart.  Its kernels are CUDA C++ written for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use and loaded with
+``ctypes`` (``kernels/common.py``).
+
+Device rule: every public entry point takes ``device=None``, which means
+``"cuda"`` and raises when no card is present — nothing silently runs
+on the CPU.  Tests pass ``device="cpu"``, where each kernel wrapper
+takes its plain PyTorch version (the ``ref.py`` beside it) because the
+tensor lies on the CPU.
+
+Ported so far: sparse space-variant PSF deconvolution,
+``solve("deconvolve", Y, psfs, cfg=SolverConfig(mode="sparse"))``
+(``imaging/deconvolve.py``).  Importing this package imports nothing
+heavy; ``repro_torch.core.problem.solve`` is the entry point.
+"""

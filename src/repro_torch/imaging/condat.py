@@ -1,0 +1,162 @@
+"""Condat primal-dual splitting for space-variant deconvolution (Eq. 2),
+sparse mode.  Port of ``repro.imaging.condat``:
+
+  sparse  : min_X  0.5||Y - H(X)||_F^2 + ||W o Phi(X)||_1   s.t. X >= 0
+
+The per-record pieces here are reused unchanged by
+``imaging/deconvolve.py``.  Each iteration runs one forward and one
+adjoint spectral multiply (H(X) carried), one starlet forward (Phi(X)
+carried, so the over-relaxed dual input is 2 Phi(X_new) - Phi(X)) and
+one starlet adjoint, with the elementwise tails in the fused
+``kernels/condat_elwise`` passes.
+
+Step sizes are computed once on the host, exactly as the JAX module
+does (``float(spectral_norm)`` -> :func:`step_sizes`); the solvers then
+hold them as 0-d fp32 device tensors, so no iteration syncs to the host.
+
+Random draws are a seam: the operator norms and the noise calibration
+take their draws as ``u0=``/``v0=`` (PSF power iteration), ``x0=``
+(starlet power iteration) and ``noise=`` (noise calibration).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.imaging import psf as psf_op
+from repro_torch.imaging import starlet
+from repro_torch.kernels.common import resolve_device, to_device
+from repro_torch.kernels.condat_elwise.ops import condat_dual, condat_primal
+from repro_torch.kernels.starlet2d import ops as starlet_batch
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    mode: str = "sparse"            # sparse (lowrank: ROADMAP A8)
+    n_scales: int = 4
+    lam: float = 0.1                # low-rank threshold
+    k_sigma: float = 3.0            # sparse threshold in noise sigmas
+    tau: float = 0.0                # 0 -> derived from operator norms
+    sigma_dual: float = 0.0
+    rank: int = 32                  # randomized-SVT rank (low rank)
+    max_iter: int = 300
+    tol: float = 1e-4
+
+
+def require_sparse(cfg: SolverConfig) -> None:
+    if cfg.mode != "sparse":
+        raise NotImplementedError(
+            f"mode={cfg.mode!r} is not ported yet (ROADMAP A8, the "
+            f"low-rank slice); this slice runs mode='sparse'")
+
+
+# ---------------------------------------------------------------------
+# Per-record pieces (used unchanged by imaging/deconvolve.py)
+# ---------------------------------------------------------------------
+
+def grad_from_HX(HX, Y, kf_pair):
+    """grad of 0.5||Y - H(X)||^2 = H^T(H(X) - Y), off the carried H(X)
+    and the precomputed conjugate spectrum."""
+    return psf_op.Ht_fp(HX - Y, kf_pair)
+
+
+def data_cost_from(HX, Y):
+    """0.5||Y - H(X)||_F^2 off the carried forward model."""
+    return 0.5 * torch.sum((Y - HX) ** 2)
+
+
+def weight_matrix(psfs, sigma: float, n_scales: int, k_sigma: float, *,
+                  noise=None):
+    """W^(k): per-scale noise-adaptive thresholds, (J, n, 1, 1).
+
+    ``noise`` is the (8, 41, 41) Monte-Carlo draw of
+    ``starlet.noise_std_scales``, which calibrates at its default 41x41
+    shape whatever the stamp size, as the JAX module does."""
+    scale_std = starlet.noise_std_scales(n_scales, noise=noise,
+                                         device=psfs.device)     # (J,)
+    psf_energy = torch.sqrt(torch.sum(psfs ** 2, dim=(-2, -1)))  # (n,)
+    w = (k_sigma * sigma) * scale_std[:, None] * psf_energy[None, :]
+    return w[:, :, None, None]
+
+
+def sparse_dual_update(U, CX_new, CX, W, sig):
+    """Clamp U + sig Phi(X_bar) to [-W, W], with Phi(X_bar) formed as
+    2 CX_new - CX — one fused pass (``kernels/condat_elwise``)."""
+    return condat_dual(U, CX_new, CX, W, sig)
+
+
+def sparse_dual_adjoint(U, n_scales):
+    """Batched Phi^T over the dual stack: (J, n, S, S) -> (n, S, S)."""
+    return starlet_batch.adjoint(U, n_scales)
+
+
+def primal_update(X, U_adj, grad, tau):
+    """Fused gradient step + positivity prox (one elementwise pass)."""
+    return condat_primal(X, U_adj, grad, tau)
+
+
+def sparse_reg_cost(CX, W):
+    """||W o Phi(X)||_1 off the carried coefficient stack."""
+    return torch.sum(torch.abs(W * CX))
+
+
+def step_sizes(Y, psfs, cfg: SolverConfig, sigma_noise: float,
+               kf_pair=None, *, u0=None, v0=None, x0=None, noise=None):
+    """Condat step sizes from operator norms: 1/tau - sig ||L||^2 >= b/2.
+    Host floats, as in the JAX module; returns (tau, sig, W)."""
+    require_sparse(cfg)
+    norm_H = psf_op.spectral_norm(psfs, kf_pair=kf_pair, u0=u0, v0=v0)
+    norm_L = starlet.spectral_norm(cfg.n_scales, tuple(Y.shape[-2:]),
+                                   x0=x0, device=Y.device)
+    W = weight_matrix(psfs, sigma_noise, cfg.n_scales, cfg.k_sigma,
+                      noise=noise)
+    sig = cfg.sigma_dual or 0.5 / max(norm_L ** 2, 1e-12)
+    tau = cfg.tau or 1.0 / (norm_H ** 2 / 2 + sig * norm_L ** 2 + 1e-12)
+    return tau, sig, W
+
+
+# ---------------------------------------------------------------------
+# Sequential solver
+# ---------------------------------------------------------------------
+
+def solve(Y, psfs, cfg: SolverConfig, sigma_noise: float = 0.02,
+          n_iter: Optional[int] = None, cost_every: int = 1, *,
+          device=None, u0=None, v0=None, x0=None, noise=None):
+    """Run the sequential sparse solver; returns (X*, cost history).
+
+    ``cost_every``: evaluate the objective only every k-th iteration;
+    skipped entries carry the last evaluated value forward (+inf before
+    the first).  The history is a (n_iter,) tensor on the device; the
+    loop itself never syncs to the host.
+    """
+    require_sparse(cfg)
+    dev = resolve_device(device)
+    Y = to_device(Y, dev)
+    psfs = to_device(psfs, dev)
+    n_iter = n_iter or cfg.max_iter
+    cost_every = max(int(cost_every), 1)
+    kf_pair = psf_op.psf_fft_pair(psfs)
+    tau, sig, W = step_sizes(Y, psfs, cfg, sigma_noise, kf_pair=kf_pair,
+                             u0=u0, v0=v0, x0=x0, noise=noise)
+    tau = torch.tensor(tau, dtype=torch.float32, device=dev)
+    sig = torch.tensor(sig, dtype=torch.float32, device=dev)
+    X = psf_op.Ht_fp(Y, kf_pair)
+    HX = psf_op.H_fp(X, kf_pair)
+    U = torch.zeros((cfg.n_scales,) + tuple(Y.shape), device=dev)
+    CX = starlet_batch.forward(X, cfg.n_scales)
+    cost = torch.tensor(float("inf"), device=dev)
+    costs = []
+    for i in range(n_iter):
+        U_adj = sparse_dual_adjoint(U, cfg.n_scales)
+        grad = grad_from_HX(HX, Y, kf_pair)
+        X = primal_update(X, U_adj, grad, tau)
+        CX_new = starlet_batch.forward(X, cfg.n_scales)
+        U = sparse_dual_update(U, CX_new, CX, W, sig)
+        CX = CX_new
+        HX = psf_op.H_fp(X, kf_pair)
+        if i % cost_every == 0:
+            cost = data_cost_from(HX, Y) + sparse_reg_cost(CX, W)
+        costs.append(cost)
+    return X, torch.stack(costs)

@@ -1,0 +1,173 @@
+"""Algorithm 1 — space-variant PSF deconvolution, sparse mode, on one
+device.  Port of ``repro.imaging.deconvolve``.
+
+  1. initialise X_p, X_d; extract H            -> Ht warm start
+  2. place Y, PSF, X_p, X_d in the bundle      -> Bundle.create
+  3. sparse: map PSF -> W^(k)                  -> weights in the bundle
+  6-11. iterate: update + cost                 -> chunked IterativeDriver
+  12. return X_p*                              -> finalize
+
+The per-record math comes from ``imaging/condat.py`` unchanged.  The
+workload is declared once as :class:`DeconvolutionProblem`, registered
+under ``"deconvolve"``; run it with ``repro_torch.core.problem.solve``.
+
+Bundle layout: the JAX bundle keeps every leaf record-major and swaps
+the per-scale leaves (``W``, ``Xd``, ``CX``) to scale-major inside every
+iteration, which XLA makes free.  In PyTorch that swap is a copy of the
+269 MB dual stack per leaf per iteration (or a non-contiguous view the
+kernels refuse), so this bundle stores those three leaves scale-major,
+(J, n, ...), with records on axis 1 (``Bundle.record_axes``).
+``repro_torch.convert`` swaps them when state crosses packages.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.batching import BatchAxes
+from repro_torch.core.bundle import Bundle
+from repro_torch.core.problem import Problem, register
+from repro_torch.imaging import psf as psf_op
+from repro_torch.imaging.condat import (SolverConfig, data_cost_from,
+                                        grad_from_HX, primal_update,
+                                        require_sparse, sparse_dual_adjoint,
+                                        sparse_dual_update, sparse_reg_cost,
+                                        step_sizes)
+from repro_torch.kernels.common import resolve_device, to_device
+from repro_torch.kernels.starlet2d import ops as starlet_batch
+
+# per-scale leaves, stored scale-major (records on axis 1)
+SCALE_MAJOR = ("W", "Xd", "CX")
+
+
+def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
+                 sigma_noise: float = 0.02, u0=None, v0=None, x0=None,
+                 noise=None) -> Tuple[Bundle, dict]:
+    """Steps 1-5: place the inputs and derived state in the bundle.
+
+    Beyond the paper's arrays the bundle carries ``psf_fp`` (the
+    (kf, conj kf) spectrum pair), ``HX`` (H of the current primal) and
+    ``CX`` (Phi of the current primal), so each iteration runs one
+    convolution each way and one starlet forward.  The step sizes are
+    host floats (returned) and 0-d fp32 device tensors (``replicated``).
+    ``u0``/``v0``/``x0``/``noise`` are the random draws of the operator
+    norms and the noise calibration (see ``condat.step_sizes``).
+    """
+    require_sparse(cfg)
+    dev = resolve_device(device)
+    Y = to_device(Y, dev)
+    psfs = to_device(psfs, dev)
+    kf_pair = psf_op.psf_fft_pair(psfs)
+    tau, sig, W = step_sizes(Y, psfs, cfg, sigma_noise, kf_pair=kf_pair,
+                             u0=u0, v0=v0, x0=x0, noise=noise)
+    X0 = psf_op.Ht_fp(Y, kf_pair)
+    data = {"Y": Y, "psf_fp": kf_pair, "Xp": X0,
+            "HX": psf_op.H_fp(X0, kf_pair),
+            "W": W,                                           # (J, n, 1, 1)
+            "Xd": torch.zeros((cfg.n_scales,) + tuple(Y.shape),
+                              dtype=torch.float32, device=dev),
+            "CX": starlet_batch.forward(X0, cfg.n_scales)}    # (J, n, S, S)
+    replicated = {"tau": torch.tensor(tau, dtype=torch.float32),
+                  "sig": torch.tensor(sig, dtype=torch.float32)}
+    bundle = Bundle.create(data, replicated=replicated, device=dev,
+                           record_axes={k: 1 for k in SCALE_MAJOR})
+    return bundle, {"tau": tau, "sig": sig}
+
+
+def _sparse_update(d, rep, cfg: SolverConfig):
+    """Steps 7-8 (sparse): primal + dual updates, no cost.  Returns the
+    new data plus the (W, CX_new) the objective reuses."""
+    U, W, CX = d["Xd"], d["W"], d["CX"]               # (J, n, ...)
+    U_adj = sparse_dual_adjoint(U, cfg.n_scales)
+    grad = grad_from_HX(d["HX"], d["Y"], d["psf_fp"])
+    X_new = primal_update(d["Xp"], U_adj, grad, rep["tau"])
+    CX_new = starlet_batch.forward(X_new, cfg.n_scales)
+    U_new = sparse_dual_update(U, CX_new, CX, W, rep["sig"])
+    return dict(d, Xp=X_new, Xd=U_new, CX=CX_new,
+                HX=psf_op.H_fp(X_new, d["psf_fp"])), (W, CX_new)
+
+
+def make_step_fn(cfg: SolverConfig):
+    """One iteration with its objective (steps 7-9)."""
+    require_sparse(cfg)
+
+    def step(d, rep, axes):
+        d_new, (W, CX_new) = _sparse_update(d, rep, cfg)
+        cost = data_cost_from(d_new["HX"], d["Y"]) + \
+            sparse_reg_cost(CX_new, W)
+        return d_new, {"cost": cost}
+
+    return step
+
+
+def make_light_step_fn(cfg: SolverConfig):
+    """The same iteration without the objective (``cost_every`` > 1)."""
+    require_sparse(cfg)
+
+    def step(d, rep, axes):
+        return _sparse_update(d, rep, cfg)[0]
+
+    return step
+
+
+def make_cost_fn(cfg: SolverConfig):
+    """The objective of the post-iteration state (``cost_every="chunk"``):
+    the carried CX is Phi(Xp), so it is a weighted reduction with no
+    transform at all."""
+    require_sparse(cfg)
+
+    def cost(d, rep, axes):
+        return {"cost": data_cost_from(d["HX"], d["Y"])
+                + sparse_reg_cost(d["CX"], d["W"])}
+
+    return cost
+
+
+@register("deconvolve")
+class DeconvolutionProblem(Problem):
+    """Algorithm 1 in sparse mode (``mode="lowrank"`` is ROADMAP A8).
+
+    ``u0``/``v0``/``x0``/``noise`` inject the random draws of the
+    operator norms and the noise calibration (the JAX package draws them
+    from fixed ``PRNGKey``s that torch cannot reproduce); left ``None``,
+    they come from seeded CPU ``torch.Generator``s.
+    """
+
+    def __init__(self, cfg: Optional[SolverConfig] = None,
+                 sigma_noise: float = 0.02, *, u0=None, v0=None, x0=None,
+                 noise=None):
+        self.cfg = cfg if cfg is not None else SolverConfig()
+        require_sparse(self.cfg)
+        self.sigma_noise = sigma_noise
+        self.u0, self.v0, self.x0, self.noise = u0, v0, x0, noise
+        self._step = make_step_fn(self.cfg)
+        self._light = make_light_step_fn(self.cfg)
+        self._cost = make_cost_fn(self.cfg)
+
+    def init_bundle(self, inputs, device) -> Bundle:
+        Y, psfs = inputs
+        bundle, _ = build_bundle(Y, psfs, self.cfg, device=device,
+                                 sigma_noise=self.sigma_noise, u0=self.u0,
+                                 v0=self.v0, x0=self.x0, noise=self.noise)
+        return bundle
+
+    def full_step(self, d, rep, axes):
+        return self._step(d, rep, axes)
+
+    def light_step(self, d, rep, axes):
+        return self._light(d, rep, axes)
+
+    def cost(self, d, rep, axes):
+        return self._cost(d, rep, axes)
+
+    def finalize(self, bundle, log) -> Tuple[np.ndarray, dict]:
+        return bundle.data["Xp"].detach().cpu().numpy(), {}
+
+    def batch_axes(self):
+        # (Y, psfs) are both stamp-major; the noise level and the
+        # injected draws are constructor state shared by declaration
+        return BatchAxes(record_axes=(0, 0),
+                         instance_invariant=("sigma_noise", "u0", "v0",
+                                             "x0", "noise"))

@@ -22,7 +22,18 @@ prints its final line):
    versions, pocketfft), cost trajectories compared;
 6. times from CUDA events (median of 30 runs after warm-up) for each
    kernel, its plain version and, where one exists, the one PyTorch
-   call computing the same function, beside the memory/compute bound.
+   call computing the same function, beside the memory/compute bound;
+7. the SCDL kernels (``admm_elwise``, ``dict_outer_pair``,
+   ``dict_outer``) against their plain versions: the main path's
+   shapes, a ragged K, bf16, and the pair at the paper's A = 2056;
+8. the SCDL main path at the paper's grayscale width:
+   ``solve("scdl", ...)`` on K = 40 000 coupled patches (P = 289,
+   M = 81), A = 512 atoms, 100 iterations; launch counters and host
+   syncs as in phase 4, the NRMSE must fall; then one more chunk of
+   its iteration under torch.profiler;
+9. the SCDL solve at K = 2048, A = 128 on the card and on the CPU,
+   cost trajectories compared;
+10. times of the SCDL kernels, as in phase 6.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  The whole report also goes to
@@ -57,6 +68,22 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
 # card against CPU, cost trajectories of the whole solve: cuFFT and
 # pocketfft round differently, and the reductions sum in another order
 PARITY_RTOL = 1e-4
+
+# SCDL at the paper's grayscale patch shape (benchmarks/bench_scdl.py),
+# the SCDLConfig default of 512 atoms and the K ~ 40k both TPU kernels
+# were sized for
+SCDL_K, SCDL_P, SCDL_M, SCDL_A = 40_000, 289, 81, 512
+SCDL_ITERS, SCDL_CHUNK = 100, 10
+SCDL_PARITY_K, SCDL_PARITY_A, SCDL_PARITY_ITERS, SCDL_PARITY_CHUNK = \
+    2048, 128, 24, 8
+
+
+def outer_tol(dtype_name, K):
+    """Outer products: sums over K of products, so the absolute error
+    grows with K (tests/test_kernels.py's ``_do_tol``)."""
+    if dtype_name == "bfloat16":
+        return dict(rtol=2e-2, atol=K * 2e-3)
+    return dict(rtol=1e-4, atol=K * 1e-6)
 
 
 def log(msg: str) -> None:
@@ -100,8 +127,7 @@ def build_phase():
 
 
 # ----------------------------------------------------------------- 3
-def compare(name, got, want, dtype_name):
-    tol = TOL[dtype_name]
+def compare(name, got, want, tol):
     g, w = got.float(), want.float()
     if g.shape != w.shape:
         raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
@@ -141,26 +167,26 @@ def kernel_phase(torch):
             want = smooth(x, scale=j, use_kernel=False)
             torch.cuda.synchronize()
             e = compare(f"smooth {tuple(shape)} {dtype} j={j}", got, want,
-                        str(dtype).split(".")[1])
+                        TOL[str(dtype).split(".")[1]])
             if shape[0] == MAIN_N:
                 errs["starlet2d.smooth"] = max(errs["starlet2d.smooth"], e)
     for shape, dtype in (((MAIN_N, STAMP, STAMP), f32),
                          ((130, 21, 21), bf16)):
         X, Ua, gr = (randn(shape, dtype) for _ in range(3))
         tau = torch.tensor(0.31, device=dev)
-        dn = str(dtype).split(".")[1]
+        tol = TOL[str(dtype).split(".")[1]]
         got = condat_primal(X, Ua, gr, tau)
         want = condat_primal(X, Ua, gr, tau, use_kernel=False)
         torch.cuda.synchronize()
-        e = compare(f"primal {tuple(shape)} {dtype}", got, want, dn)
+        e = compare(f"primal {tuple(shape)} {dtype}", got, want, tol)
         xn, xb = condat_primal(X, Ua, gr, tau, with_xbar=True)
         rn, rb = condat_primal(X, Ua, gr, tau, with_xbar=True,
                                use_kernel=False)
         torch.cuda.synchronize()
         e = max(e, compare(f"primal+xbar X_new {tuple(shape)} {dtype}",
-                           xn, rn, dn),
+                           xn, rn, tol),
                 compare(f"primal+xbar X_bar {tuple(shape)} {dtype}",
-                        xb, rb, dn))
+                        xb, rb, tol))
         if shape[0] == MAIN_N:
             errs["condat_elwise.primal"] = e
     for shape, dtype in (((SCALES, MAIN_N, STAMP, STAMP), f32),
@@ -173,45 +199,82 @@ def kernel_phase(torch):
         want = condat_dual(U, Cn, Co, W, sig, use_kernel=False)
         torch.cuda.synchronize()
         e = compare(f"dual {tuple(shape)} {dtype}", got, want,
-                    str(dtype).split(".")[1])
+                    TOL[str(dtype).split(".")[1]])
         if shape[1] == MAIN_N:
             errs["condat_elwise.dual"] = e
     return errs
 
 
 # ----------------------------------------------------------------- 4
+DECONV_KERNELS = ("starlet2d.smooth", "condat_elwise.primal",
+                  "condat_elwise.dual")
+SCDL_KERNELS = ("admm_elwise", "dict_outer_pair", "dict_outer")
+
+
+def counters():
+    """Every kernel wrapper, by kernel name: each holds its launch
+    count in ``.launches``."""
+    from repro_torch.kernels.admm_elwise.kernel import admm_elwise_fwd
+    from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
+                                                          condat_primal_fwd)
+    from repro_torch.kernels.dict_outer.kernel import (dict_outer_fwd,
+                                                       dict_outer_pair_fwd)
+    from repro_torch.kernels.starlet2d.kernel import smooth_fwd
+    return {"starlet2d.smooth": smooth_fwd,
+            "condat_elwise.primal": condat_primal_fwd,
+            "condat_elwise.dual": condat_dual_fwd,
+            "admm_elwise": admm_elwise_fwd,
+            "dict_outer_pair": dict_outer_pair_fwd,
+            "dict_outer": dict_outer_fwd}
+
+
+def reset_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def run_counting_syncs(torch, run):
+    """``run(progress_fn)`` under torch's sync debug mode; returns its
+    result and the median count of host syncs between consecutive
+    progress events (one event per chunk)."""
+    syncs_at = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def progress(event):
+            syncs_at.append(sum("synchroniz" in str(w.message)
+                                for w in caught))
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = run(progress)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    steady = [b - a for a, b in zip(syncs_at, syncs_at[1:])]
+    return out, wall, statistics.median(steady) if steady else None
+
+
 def main_path_phase(torch):
     from repro_torch.core.problem import solve
     from repro_torch.imaging.condat import SolverConfig
     from repro_torch.imaging.psf import simulate
-    from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
-                                                          condat_primal_fwd)
-    from repro_torch.kernels.starlet2d.kernel import smooth_fwd
 
     data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
     torch.cuda.synchronize()
-    syncs_at = []
-
-    def progress(event):
-        syncs_at.append(sum("synchroniz" in str(w.message) for w in caught))
-
-    for fn in (smooth_fwd, condat_primal_fwd, condat_dual_fwd):
-        fn.launches = 0
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            sol = solve("deconvolve", data.Y, data.psfs,
-                        cfg=SolverConfig(mode="sparse", n_scales=SCALES),
-                        max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
-                        cost_every="chunk", tol=1e-5, progress_fn=progress)
-            wall = time.perf_counter() - t0
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    launches = {"starlet2d.smooth": smooth_fwd.launches,
-                "condat_elwise.primal": condat_primal_fwd.launches,
-                "condat_elwise.dual": condat_dual_fwd.launches}
+    reset_launches()
+    sol, wall, syncs_per_chunk = run_counting_syncs(
+        torch, lambda progress: solve(
+            "deconvolve", data.Y, data.psfs,
+            cfg=SolverConfig(mode="sparse", n_scales=SCALES),
+            max_iter=MAIN_ITERS, chunk=MAIN_CHUNK, cost_every="chunk",
+            tol=1e-5, progress_fn=progress))
+    launches = read_launches()
     it = sol.log.iters_run
     log(f"main path: n={MAIN_N} J={SCALES} iters_run={it} "
         f"converged_at={sol.log.converged_at} wall {wall:.2f} s, "
@@ -222,6 +285,9 @@ def main_path_phase(torch):
                              f"iters_run {it}")
     if launches["starlet2d.smooth"] < 11 * it + 4:
         raise AssertionError(f"starlet launches {launches} < 11 * {it} + 4")
+    if any(launches[k] for k in SCDL_KERNELS):
+        raise AssertionError(f"SCDL kernels launched on the deconvolution "
+                             f"path: {launches}")
     costs = sol.log.costs
     evaluated = [costs[i] for i in range(len(costs))
                  if (i + 1) % MAIN_CHUNK == 0 or i == len(costs) - 1]
@@ -238,8 +304,6 @@ def main_path_phase(torch):
     # each chunk's time runs to its host sync, which waits for the card
     chunk_ms = [t * 1e3 for t in sol.log.times[MAIN_CHUNK::MAIN_CHUNK]]
     ms_per_iter = statistics.median(chunk_ms) if chunk_ms else None
-    steady = [b - a for a, b in zip(syncs_at, syncs_at[1:])]
-    syncs_per_chunk = statistics.median(steady) if steady else None
     log(f"main path: evaluated costs {evaluated[0]:.6g} -> "
         f"{evaluated[-1]:.6g}; MSE deconvolved {mse_dec:.3e} vs observed "
         f"{mse_obs:.3e}; {ms_per_iter} ms/iteration (median over chunks "
@@ -260,44 +324,64 @@ PARTS = (("starlet2d.smooth", ("starlet_smooth",)),
          ("fft", ("fft", "FFT")))
 
 
+def profile_window(torch, body, iters, parts_by_key):
+    """Run ``body()`` (``iters`` iterations, device work only) under
+    ``torch.profiler``: device time per iteration for each part
+    (kernel-name fragments -> part, first match wins, the rest is
+    "other"), the device's idle share of the window's wall time, the
+    device operations (kernels and copies) per iteration, and the
+    kernels that took most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        body()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {name: 0.0 for name, _ in parts_by_key}
+    parts["other"] = 0.0
+    top = []
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        launches += ev.count
+        ms = ev.self_device_time_total / 1e3
+        part = next((name for name, keys in parts_by_key
+                     if any(k in ev.key for k in keys)), "other")
+        parts[part] += ms
+        top.append((ms, ev.key[:90]))
+    busy = sum(parts.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return {"iters": iters, "wall_ms_per_iter": wall_ms / iters,
+            "device_ms_per_iter": busy / iters,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "device_ops_per_iter": launches / iters,
+            "device_ms_per_iter_by_part": {k: v / iters
+                                           for k, v in parts.items()},
+            "top_kernels_ms_per_iter": [[k, ms / iters] for ms, k in
+                                        sorted(top, reverse=True)[:12]]}
+
+
 def profile_phase(torch, bundle):
     """One chunk of the main path's iteration, continued from its final
     state, under ``torch.profiler``: device time per iteration for each
     part (the three kernels, cuFFT, the rest), and the device's idle
     share of the window's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.imaging.condat import SolverConfig
     from repro_torch.imaging.deconvolve import make_light_step_fn
     light = make_light_step_fn(SolverConfig(mode="sparse", n_scales=SCALES))
-    d, rep = bundle.data, bundle.replicated
-    d = light(d, rep, ())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    state = {"d": light(bundle.data, bundle.replicated, ())}
+
+    def body():
         for _ in range(MAIN_CHUNK):
-            d = light(d, rep, ())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    parts = {name: 0.0 for name, _ in PARTS}
-    parts["other"] = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        part = next((name for name, keys in PARTS
-                     if any(k in ev.key for k in keys)), "other")
-        parts[part] += ms
-    busy = sum(parts.values())
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    per_iter = {k: v / MAIN_CHUNK for k, v in parts.items()}
-    out = {"iters": MAIN_CHUNK, "wall_ms_per_iter": wall_ms / MAIN_CHUNK,
-           "device_ms_per_iter": busy / MAIN_CHUNK,
-           "idle_share": max(0.0, 1.0 - busy / wall_ms),
-           "device_ms_per_iter_by_part": per_iter}
+            state["d"] = light(state["d"], bundle.replicated, ())
+
+    out = profile_window(torch, body, MAIN_CHUNK, PARTS)
     log(f"profile: {json.dumps(out)}")
     return out
 
@@ -417,6 +501,234 @@ def timing_phase(torch):
     return out
 
 
+# ----------------------------------------------------------------- 7
+def scdl_kernel_phase(torch):
+    from repro_torch.kernels.admm_elwise.ops import admm_elwise
+    from repro_torch.kernels.dict_outer.ops import (dict_outer,
+                                                    dict_outer_pair)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def dname(dtype):
+        return str(dtype).split(".")[1]
+
+    errs = {name: 0.0 for name in SCDL_KERNELS}
+    kw = dict(c1=0.4, c2=0.4, c3=0.8, t1=0.025, t2=0.025)
+    for (K, A), dtype in (((SCDL_K, SCDL_A), f32), ((1000, 256), f32),
+                          ((130, 128), bf16)):
+        Wh, Wl, YZ = randn((K, A), dtype), randn((K, A), dtype), \
+            randn((5, K, A), dtype)
+        got = admm_elwise(Wh, Wl, YZ, **kw)
+        want = admm_elwise(Wh, Wl, YZ, use_kernel=False, **kw)
+        torch.cuda.synchronize()
+        e = compare(f"admm_elwise {(5, K, A)} {dtype}", got, want,
+                    TOL[dname(dtype)])
+        if K == SCDL_K:
+            errs["admm_elwise"] = e
+    for (K, P, M, A), dtype in (((SCDL_K, SCDL_P, SCDL_M, SCDL_A), f32),
+                                ((1000, SCDL_P, SCDL_M, 128), f32),
+                                ((130, 25, 9, 128), bf16),
+                                ((4096, SCDL_P, SCDL_M, 2056), f32)):
+        ins = [randn((K, m), dtype) for m in (P, M, A, A)]
+        got = dict_outer_pair(*ins)
+        want = dict_outer_pair(*ins, use_kernel=False)
+        torch.cuda.synchronize()
+        e = max(compare(f"dict_outer_pair {name} K={K} P={P} M={M} A={A} "
+                        f"{dtype}", o, r, outer_tol(dname(dtype), K))
+                for name, o, r in zip(("ShWh", "SlWl", "phi_h", "phi_l"),
+                                      got, want))
+        if K == SCDL_K:
+            errs["dict_outer_pair"] = e
+    for (K, P, A), dtype in (((SCDL_K, SCDL_P, SCDL_A), f32),
+                             ((1000, 25, 64), f32),
+                             ((130, SCDL_P, 128), bf16)):
+        S, W = randn((K, P), dtype), randn((K, A), dtype)
+        got = dict_outer(S, W)
+        want = dict_outer(S, W, use_kernel=False)
+        torch.cuda.synchronize()
+        e = max(compare(f"dict_outer {name} K={K} P={P} A={A} {dtype}", o,
+                        r, outer_tol(dname(dtype), K))
+                for name, o, r in zip(("SW", "WW"), got, want))
+        if K == SCDL_K:
+            errs["dict_outer"] = e
+    return errs
+
+
+# ----------------------------------------------------------------- 8
+# kernel-name fragments -> the part of the SCDL iteration they belong to
+SCDL_PARTS = (("dict_outer_pair", ("dict_outer",)),
+              ("admm_elwise", ("admm_elwise",)),
+              # cuSOLVER's potrf runs as getrf without pivoting
+              ("cusolver", ("potrf", "potrs", "getrf", "trsm", "syrk",
+                            "chol", "cusolver")),
+              ("cublas_gemm", ("gemm", "Gemm", "GEMM")))
+
+
+def scdl_main_path_phase(torch):
+    from repro_torch.core.problem import solve
+    from repro_torch.data.synthetic import coupled_patches
+    from repro_torch.imaging.scdl import SCDLConfig
+
+    t0 = time.perf_counter()
+    S_h, S_l = coupled_patches(SCDL_K, SCDL_P, SCDL_M, SCDL_A,
+                               torch.Generator().manual_seed(12))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    cfg = SCDLConfig(n_atoms=SCDL_A, max_iter=SCDL_ITERS)
+    reset_launches()
+    sol, wall, syncs_per_chunk = run_counting_syncs(
+        torch, lambda progress: solve(
+            "scdl", S_h, S_l, cfg=cfg, max_iter=SCDL_ITERS,
+            chunk=SCDL_CHUNK, cost_every="chunk", progress_fn=progress))
+    launches = read_launches()
+    it = sol.log.iters_run
+    log(f"scdl main path: K={SCDL_K} P={SCDL_P} M={SCDL_M} A={SCDL_A} "
+        f"iters_run={it} wall {wall:.2f} s (data {data_s:.2f} s), "
+        f"launches {launches}")
+    if it != SCDL_ITERS:
+        raise AssertionError(f"iters_run {it} != {SCDL_ITERS} (tol = 0)")
+    if launches["admm_elwise"] != it or launches["dict_outer_pair"] != it:
+        raise AssertionError(f"admm_elwise/dict_outer_pair launches "
+                             f"{launches} != iters_run {it}")
+    if any(launches[k] for k in DECONV_KERNELS + ("dict_outer",)):
+        raise AssertionError(f"kernels off the SCDL path launched: "
+                             f"{launches}")
+    if syncs_per_chunk != 1:
+        raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
+                             f"expected 1")
+    costs = sol.log.costs
+    evaluated = [costs[i] for i in range(SCDL_CHUNK - 1, len(costs),
+                                         SCDL_CHUNK)]
+    if not all(math.isfinite(c) for c in evaluated):
+        raise AssertionError(f"non-finite NRMSE: {evaluated}")
+    if not evaluated[-1] < evaluated[0]:
+        raise AssertionError(f"NRMSE did not fall: {evaluated}")
+    Xh, Xl = sol.x
+    if Xh.shape != (SCDL_P, SCDL_A) or Xl.shape != (SCDL_M, SCDL_A):
+        raise AssertionError(f"dictionary shapes {Xh.shape}, {Xl.shape}")
+    chunk_ms = [t * 1e3 for t in sol.log.times[SCDL_CHUNK::SCDL_CHUNK]]
+    ms_per_iter = statistics.median(chunk_ms)
+    log(f"scdl main path: NRMSE {evaluated[0]:.6g} -> {evaluated[-1]:.6g} "
+        f"(every {SCDL_CHUNK}: {[round(c, 6) for c in evaluated]}); "
+        f"{ms_per_iter} ms/iteration (median over chunks after the "
+        f"first); host syncs per chunk {syncs_per_chunk}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"K": SCDL_K, "P": SCDL_P, "M": SCDL_M, "A": SCDL_A,
+            "iters_run": it, "launches": launches,
+            "ms_per_iter": ms_per_iter, "chunk_ms": chunk_ms,
+            "syncs_per_chunk": syncs_per_chunk, "wall_s": wall,
+            "data_s": data_s, "nrmse": evaluated}, sol.bundle, cfg
+
+
+def scdl_profile_phase(torch, bundle, cfg):
+    """One more chunk of the SCDL iteration (light step and replicated
+    refresh), continued from the main path's final state, under
+    ``torch.profiler``."""
+    from repro_torch.imaging.scdl import make_light_step_fn, make_refresh_fn
+    light, refresh = make_light_step_fn(cfg), make_refresh_fn(cfg)
+    state = {"d": bundle.data, "rep": bundle.replicated}
+
+    def one():
+        state["d"], out = light(state["d"], state["rep"], ())
+        state["rep"] = refresh(state["rep"], out)
+
+    one()
+
+    def body():
+        for _ in range(SCDL_CHUNK):
+            one()
+
+    out = profile_window(torch, body, SCDL_CHUNK, SCDL_PARTS)
+    log(f"scdl profile: {json.dumps(out)}")
+    return out
+
+
+# ----------------------------------------------------------------- 9
+def scdl_parity_phase(torch):
+    import numpy as np
+
+    from repro_torch.core.problem import solve
+    from repro_torch.data.synthetic import coupled_patches
+    from repro_torch.imaging.scdl import SCDLConfig
+    S_h, S_l = coupled_patches(SCDL_PARITY_K, SCDL_P, SCDL_M, SCDL_PARITY_A,
+                               torch.Generator().manual_seed(5),
+                               device="cpu")
+    runs = {dev: solve("scdl", S_h, S_l,
+                       cfg=SCDLConfig(n_atoms=SCDL_PARITY_A), device=dev,
+                       max_iter=SCDL_PARITY_ITERS, chunk=SCDL_PARITY_CHUNK,
+                       cost_every="chunk")
+            for dev in ("cuda", "cpu")}
+    c_gpu = np.asarray(runs["cuda"].log.costs)
+    c_cpu = np.asarray(runs["cpu"].log.costs)
+    fin = np.isfinite(c_cpu)
+    if not np.array_equal(fin, np.isfinite(c_gpu)) or not fin.any():
+        raise AssertionError("finite cost entries differ")
+    gap = float(np.max(np.abs(c_gpu[fin] - c_cpu[fin]) / np.abs(c_cpu[fin])))
+    x_gap = max(float(np.max(np.abs(a - b)))
+                for a, b in zip(runs["cuda"].x, runs["cpu"].x))
+    log(f"scdl card vs CPU at K={SCDL_PARITY_K} A={SCDL_PARITY_A}: max "
+        f"relative NRMSE gap {gap:.3e} (rtol {PARITY_RTOL}), max abs "
+        f"dictionary gap {x_gap:.3e}")
+    if not gap <= PARITY_RTOL:
+        raise AssertionError(f"card/CPU NRMSE gap {gap} > {PARITY_RTOL}")
+    return {"K": SCDL_PARITY_K, "A": SCDL_PARITY_A,
+            "max_rel_cost_gap": gap, "max_abs_dict_gap": x_gap}
+
+
+# ---------------------------------------------------------------- 10
+def scdl_timing_phase(torch):
+    from repro_torch.kernels.admm_elwise.ops import admm_elwise
+    from repro_torch.kernels.dict_outer.ops import (dict_outer,
+                                                    dict_outer_pair)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    K, P, M, A = SCDL_K, SCDL_P, SCDL_M, SCDL_A
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    Wh, Wl, YZ = randn(K, A), randn(K, A), randn(5, K, A)
+    kw = dict(c1=0.4, c2=0.4, c3=0.8, t1=0.025, t2=0.025)
+    # five planes read (Wh, Wl, Y1, Y2, Y3), five written; ~25 flops each
+    t_bound, by = bound(10 * K * A * 4, 25 * K * A)
+    out["admm_elwise"] = {
+        "ms": time_ms(torch, lambda: admm_elwise(Wh, Wl, YZ, **kw)),
+        "plain_ms": time_ms(torch, lambda: admm_elwise(
+            Wh, Wl, YZ, use_kernel=False, **kw)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by}
+    del YZ
+
+    Sh, Sl = randn(K, P), randn(K, M)
+    cols = P + M + 2 * A
+    # each Gram W^T W is symmetric: K A (A + 1) flops (SYRK) suffice
+    t_bound, by = bound((K * cols + cols * A) * 4,
+                        2 * K * A * (P + M) + 2 * K * A * (A + 1))
+    out["dict_outer_pair"] = {
+        "ms": time_ms(torch, lambda: dict_outer_pair(Sh, Sl, Wh, Wl)),
+        "plain_ms": time_ms(torch, lambda: dict_outer_pair(
+            Sh, Sl, Wh, Wl, use_kernel=False)),
+        "library_ms": time_ms(torch, lambda: (
+            Sh.T @ Wh, Sl.T @ Wl, Wh.T @ Wh, Wl.T @ Wl)),
+        "bound_ms": t_bound, "bound_by": by}
+
+    t_bound, by = bound((K * (P + A) + (P + A) * A) * 4,
+                        2 * K * A * P + K * A * (A + 1))
+    out["dict_outer"] = {
+        "ms": time_ms(torch, lambda: dict_outer(Sh, Wh)),
+        "plain_ms": time_ms(torch, lambda: dict_outer(
+            Sh, Wh, use_kernel=False)),
+        "library_ms": time_ms(torch, lambda: (Sh.T @ Wh, Wh.T @ Wh)),
+        "bound_ms": t_bound, "bound_by": by}
+    for name, t in out.items():
+        log(f"  {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+            f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']})")
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -424,6 +736,12 @@ KERNELS = {
                              "src/repro/kernels/condat_elwise/kernel.py:65"),
     "condat_elwise.dual": ("src/repro_torch/csrc/condat_elwise.cu",
                            "src/repro/kernels/condat_elwise/kernel.py:91"),
+    "admm_elwise": ("src/repro_torch/csrc/admm_elwise.cu",
+                    "src/repro/kernels/admm_elwise/kernel.py:51"),
+    "dict_outer_pair": ("src/repro_torch/csrc/dict_outer.cu",
+                        "src/repro/kernels/dict_outer/kernel.py:99"),
+    "dict_outer": ("src/repro_torch/csrc/dict_outer.cu",
+                   "src/repro/kernels/dict_outer/kernel.py:49"),
 }
 
 
@@ -433,6 +751,7 @@ def main() -> int:
     # the port must be importable from this checkout (fails when the
     # script stands alone)
     import repro_torch  # noqa: F401
+    t_start = time.perf_counter()
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     log("== build")
@@ -448,12 +767,26 @@ def main() -> int:
     report["parity"] = parity_phase(torch)
     log("== timings (CUDA events, median of 30)")
     times = timing_phase(torch)
+    log("== SCDL kernels against their plain versions")
+    errs.update(scdl_kernel_phase(torch))
+    log("== SCDL main path")
+    torch.cuda.reset_peak_memory_stats()
+    report["scdl_main_path"], bundle, cfg = scdl_main_path_phase(torch)
+    log("== where the time of one SCDL iteration goes (torch.profiler)")
+    report["scdl_profile"] = scdl_profile_phase(torch, bundle, cfg)
+    del bundle
+    log("== SCDL card against CPU")
+    report["scdl_parity"] = scdl_parity_phase(torch)
+    log("== SCDL timings (CUDA events, median of 30)")
+    times.update(scdl_timing_phase(torch))
+    path_launches = {**report["main_path"]["launches"],
+                     **{k: report["scdl_main_path"]["launches"][k]
+                        for k in SCDL_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": report["main_path"]["launches"][name],
+                 "replaces": replaces, "launches": path_launches[name],
                  "max_abs_err": errs[name], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -462,9 +795,14 @@ def main() -> int:
         kernels.append(entry)
         print(json.dumps({"kernel": entry}), flush=True)
     report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
     log(f"main path: {report['main_path']['ms_per_iter']} ms/iteration at "
         f"n={MAIN_N}, {report['main_path']['syncs_per_chunk']} host syncs "
         f"per chunk")
+    log(f"scdl main path: {report['scdl_main_path']['ms_per_iter']} "
+        f"ms/iteration at K={SCDL_K} A={SCDL_A}, "
+        f"{report['scdl_main_path']['syncs_per_chunk']} host syncs per "
+        f"chunk; whole run {report['seconds']:.1f} s after the device check")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

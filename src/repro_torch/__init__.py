@@ -14,6 +14,8 @@ tensor lies on the CPU.
 
 Ported so far: sparse space-variant PSF deconvolution,
 ``solve("deconvolve", Y, psfs, cfg=SolverConfig(mode="sparse"))``
-(``imaging/deconvolve.py``).  Importing this package imports nothing
+(``imaging/deconvolve.py``), and sparse coupled dictionary learning for
+super-resolution, ``solve("scdl", S_h, S_l, cfg=SCDLConfig(...))``
+(``imaging/scdl.py``).  Importing this package imports nothing
 heavy; ``repro_torch.core.problem.solve`` is the entry point.
 """

@@ -2,8 +2,11 @@
 
 Port of ``repro.core.bundle`` without the mesh: a ``Bundle`` is a flat
 dict of tensors that travel together through the iteration (noisy
-stamps, PSF spectra, primal and dual variables, weights) plus a flat
-dict of broadcast state (``replicated``: step sizes and the like).
+stamps, PSF spectra, primal and dual variables, weights) plus a dict of
+broadcast state (``replicated``: step sizes, dictionaries and the
+like).  A replicated entry is a tensor or one level of nested dict of
+tensors, as SCDL's solve factors ``Fh``/``Fl`` are (their keys name the
+factor regime, so they stay a dict rather than flattened names).
 
 Every data leaf carries the same number of records.  The record axis
 is axis 0 unless ``record_axes`` names another: the deconvolution
@@ -30,11 +33,28 @@ def _copy_to(x: Any, device: torch.device) -> torch.Tensor:
     return to_device(x, device)
 
 
+def _copy_rep(x: Any, device: torch.device):
+    """A replicated entry: a tensor, or a dict of tensors."""
+    if isinstance(x, Mapping):
+        return {k: _copy_to(v, device) for k, v in x.items()}
+    return _copy_to(x, device)
+
+
+def _rep_leaves(replicated: Mapping[str, Any]):
+    """(name, tensor) for every tensor of the replicated side, nested
+    entries named ``outer.inner``."""
+    for k, v in replicated.items():
+        if isinstance(v, Mapping):
+            yield from ((f"{k}.{kk}", vv) for kk, vv in v.items())
+        else:
+            yield k, v
+
+
 @dataclass
 class Bundle:
     """Co-located record-wise tensors + broadcast state on one device."""
     data: Dict[str, torch.Tensor]
-    replicated: Dict[str, torch.Tensor]
+    replicated: Dict[str, Any]
     device: torch.device
     record_axes: Mapping[str, int] = field(default_factory=dict)
 
@@ -49,7 +69,7 @@ class Bundle:
         invariant."""
         dev = resolve_device(device)
         b = cls(data={k: _copy_to(v, dev) for k, v in data.items()},
-                replicated={k: _copy_to(v, dev)
+                replicated={k: _copy_rep(v, dev)
                             for k, v in (replicated or {}).items()},
                 device=dev, record_axes=dict(record_axes or {}))
         b.validate()
@@ -73,7 +93,7 @@ class Bundle:
                 raise ValueError(
                     f"bundle leaf {k!r} holds {v.shape[self.record_axis(k)]}"
                     f" records on axis {self.record_axis(k)}, others {n}")
-        for k, v in {**self.data, **self.replicated}.items():
+        for k, v in [*self.data.items(), *_rep_leaves(self.replicated)]:
             if v.device != self.device:
                 raise ValueError(f"bundle leaf {k!r} lies on {v.device}, "
                                  f"the bundle on {self.device}")

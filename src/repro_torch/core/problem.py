@@ -117,9 +117,10 @@ _REGISTRY: Dict[str, Type[Problem]] = {}
 
 _BUILTIN_MODULES: Dict[str, str] = {
     "deconvolve": "repro_torch.imaging.deconvolve",
+    "scdl": "repro_torch.imaging.scdl",
 }
 # workloads of the reference that later slices port
-_LATER_WORKLOADS: Dict[str, str] = {"scdl": "A7", "lowrank": "A8"}
+_LATER_WORKLOADS: Dict[str, str] = {"lowrank": "A8"}
 
 
 def register(name: str):
@@ -260,8 +261,8 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
           resume: Union[bool, int] = False, **run_opts) -> Solution:
     """The single entry point: configure, place, iterate.
 
-    ``problem`` is a registry key (``"deconvolve"``), a Problem class or
-    an instance.  ``*inputs`` (numpy arrays or tensors) go to
+    ``problem`` is a registry key (``"deconvolve"``, ``"scdl"``), a
+    Problem class or an instance.  ``*inputs`` (numpy arrays or tensors) go to
     ``problem.init_bundle``, which copies them onto ``device``
     (``None`` = ``"cuda"``; raises without a card).  Run control:
     ``options=RunOptions(...)`` replaces the problem's defaults;

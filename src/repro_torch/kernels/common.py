@@ -44,12 +44,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (every entry point returns an int
-# cudaError_t; the stream is the last argument)
+# cudaError_t; a launch takes the stream as its last argument)
 _SIGNATURES = {
     "repro_starlet_smooth": (_P, _P, _I, _I, _I, _I, _I, _P),
     "repro_condat_primal": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "repro_condat_dual": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "repro_admm_elwise": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I, _P),
+    "repro_dict_outer": (_I, _P, _P, _P, _P, _I, _L, _I, _P, _I, _P),
+    # host-only query (no stream): the split of K and the scratch size
+    "repro_dict_outer_plan": (_I, _P, _I, _L, _I, _P, _P),
 }
 
 

@@ -222,11 +222,19 @@ def test_later_slice_options_raise(case, kwargs, item):
         solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
 
 
-@pytest.mark.parametrize("name,item", [("scdl", "A7"), ("lowrank", "A8")])
+@pytest.mark.parametrize("name,item", [("lowrank", "A8")])
 def test_later_workloads_raise(case, name, item):
     Y, P, _ = case
     with pytest.raises(NotImplementedError, match=item):
         solve(name, Y, P, device="cpu")
+
+
+def test_scdl_workload_is_ported():
+    """``"scdl"`` (ROADMAP A7) resolves to the port's own Problem."""
+    from repro_torch.core.problem import available, get
+    from repro_torch.imaging.scdl import SCDLProblem
+    assert get("scdl") is SCDLProblem
+    assert "scdl" in available()
 
 
 def test_lowrank_mode_raises():

@@ -78,7 +78,9 @@ def test_port_has_its_own_kernel_sources():
     """Every kernel family of the slice has a CUDA source and the
     ref/kernel/ops triple beside it."""
     for family, source in (("starlet2d", "starlet2d.cu"),
-                           ("condat_elwise", "condat_elwise.cu")):
+                           ("condat_elwise", "condat_elwise.cu"),
+                           ("admm_elwise", "admm_elwise.cu"),
+                           ("dict_outer", "dict_outer.cu")):
         assert (PORT / "csrc" / source).is_file()
         for part in ("ref.py", "kernel.py", "ops.py"):
             assert (PORT / "kernels" / family / part).is_file()

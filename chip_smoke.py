@@ -25,7 +25,10 @@ prints its final line):
    call computing the same function, beside the memory/compute bound;
 7. the SCDL kernels (``admm_elwise``, ``dict_outer_pair``,
    ``dict_outer``) against their plain versions: the main path's
-   shapes, a ragged K, bf16, and the pair at the paper's A = 2056;
+   shapes, a ragged K, a ragged and unaligned fp32 shape (K = 1001,
+   P = 289, M = 81, A = 200), bf16, operands that start off a 16-byte
+   boundary, and the pair at the paper's A = 2056; each Gram symmetric,
+   and two calls at the main shape bit-identical;
 8. the SCDL main path at the paper's grayscale width:
    ``solve("scdl", ...)`` on K = 40 000 coupled patches (P = 289,
    M = 81), A = 512 atoms, 100 iterations; launch counters and host
@@ -57,6 +60,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
 
 MAIN_N, STAMP, SCALES = 10_000, 41, 4
 MAIN_ITERS, MAIN_CHUNK = 60, 12
@@ -440,6 +444,22 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def outer_bound(nbytes, flops):
+    """The least time for fp32 outer products at fp32 accuracy: the
+    operations either on the SIMT units or as three TF32 products each
+    on the tensor cores (3xTF32), whichever is faster, against the bytes.
+    Also returns the fp32 SIMT bound alone, which earlier rows used."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = flops / FP32_FLOPS_PER_S * 1e3
+    t_tf32x3 = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    t_ops, route = min((t_fp32, "fp32"), (t_tf32x3, "tf32x3"))
+    t_bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    return {"bound_ms": t_bound, "bound_by": by, "bound_route": route,
+            "bound_fp32_ms": max(t_bytes, t_fp32),
+            "bound_tf32x3_ms": max(t_bytes, t_tf32x3)}
+
+
 def timing_phase(torch):
     from repro_torch.kernels.condat_elwise.ops import (condat_dual,
                                                        condat_primal)
@@ -528,32 +548,64 @@ def scdl_kernel_phase(torch):
                     TOL[dname(dtype)])
         if K == SCDL_K:
             errs["admm_elwise"] = e
-    for (K, P, M, A), dtype in (((SCDL_K, SCDL_P, SCDL_M, SCDL_A), f32),
-                                ((1000, SCDL_P, SCDL_M, 128), f32),
-                                ((130, 25, 9, 128), bf16),
-                                ((4096, SCDL_P, SCDL_M, 2056), f32)):
-        ins = [randn((K, m), dtype) for m in (P, M, A, A)]
+    def offset(x, k):
+        """x copied k elements into a fresh buffer: a view whose first
+        element is not on a 16-byte boundary."""
+        buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+        out = buf[k:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    def symmetric(name, G, tol):
+        """G against its transpose: the kernel computes the upper
+        triangle of a Gram and mirrors it."""
+        compare(f"{name} symmetric", G, G.T, tol)
+
+    # (K, P, M, A), dtype, elements by which every operand is offset
+    for (K, P, M, A), dtype, off in (
+            ((SCDL_K, SCDL_P, SCDL_M, SCDL_A), f32, 0),
+            ((1000, SCDL_P, SCDL_M, 128), f32, 0),
+            ((1001, SCDL_P, SCDL_M, 200), f32, 0),
+            ((1001, SCDL_P, SCDL_M, 200), f32, 3),
+            ((130, 25, 9, 128), bf16, 0),
+            ((130, 25, 9, 128), bf16, 5),
+            ((4096, SCDL_P, SCDL_M, 2056), f32, 0)):
+        ins = [offset(randn((K, m), dtype), off) for m in (P, M, A, A)]
         got = dict_outer_pair(*ins)
         want = dict_outer_pair(*ins, use_kernel=False)
         torch.cuda.synchronize()
-        e = max(compare(f"dict_outer_pair {name} K={K} P={P} M={M} A={A} "
-                        f"{dtype}", o, r, outer_tol(dname(dtype), K))
+        what = f"dict_outer_pair K={K} P={P} M={M} A={A} {dtype} offset {off}"
+        tol = outer_tol(dname(dtype), K)
+        e = max(compare(f"{what} {name}", o, r, tol)
                 for name, o, r in zip(("ShWh", "SlWl", "phi_h", "phi_l"),
                                       got, want))
+        for name, G in zip(("phi_h", "phi_l"), got[2:]):
+            symmetric(f"{what} {name}", G, tol)
         if K == SCDL_K:
             errs["dict_outer_pair"] = e
+            again = dict_outer_pair(*ins)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            log(f"  {what}: two calls bit-identical")
     for (K, P, A), dtype in (((SCDL_K, SCDL_P, SCDL_A), f32),
                              ((1000, 25, 64), f32),
+                             ((1001, SCDL_P, 200), f32),
                              ((130, SCDL_P, 128), bf16)):
         S, W = randn((K, P), dtype), randn((K, A), dtype)
         got = dict_outer(S, W)
         want = dict_outer(S, W, use_kernel=False)
         torch.cuda.synchronize()
-        e = max(compare(f"dict_outer {name} K={K} P={P} A={A} {dtype}", o,
-                        r, outer_tol(dname(dtype), K))
+        what = f"dict_outer K={K} P={P} A={A} {dtype}"
+        tol = outer_tol(dname(dtype), K)
+        e = max(compare(f"{what} {name}", o, r, tol)
                 for name, o, r in zip(("SW", "WW"), got, want))
+        symmetric(f"{what} WW", got[1], tol)
         if K == SCDL_K:
             errs["dict_outer"] = e
+            again = dict_outer(S, W)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            log(f"  {what}: two calls bit-identical")
     return errs
 
 
@@ -703,29 +755,30 @@ def scdl_timing_phase(torch):
 
     Sh, Sl = randn(K, P), randn(K, M)
     cols = P + M + 2 * A
-    # each Gram W^T W is symmetric: K A (A + 1) flops (SYRK) suffice
-    t_bound, by = bound((K * cols + cols * A) * 4,
-                        2 * K * A * (P + M) + 2 * K * A * (A + 1))
+    # each Gram W^T W is symmetric: K A (A + 1) flops (SYRK) suffice;
+    # the library yardstick is torch.matmul in fp32 (TF32 off, phase 1)
     out["dict_outer_pair"] = {
         "ms": time_ms(torch, lambda: dict_outer_pair(Sh, Sl, Wh, Wl)),
         "plain_ms": time_ms(torch, lambda: dict_outer_pair(
             Sh, Sl, Wh, Wl, use_kernel=False)),
         "library_ms": time_ms(torch, lambda: (
             Sh.T @ Wh, Sl.T @ Wl, Wh.T @ Wh, Wl.T @ Wl)),
-        "bound_ms": t_bound, "bound_by": by}
+        **outer_bound((K * cols + cols * A) * 4,
+                      2 * K * A * (P + M) + 2 * K * A * (A + 1))}
 
-    t_bound, by = bound((K * (P + A) + (P + A) * A) * 4,
-                        2 * K * A * P + K * A * (A + 1))
     out["dict_outer"] = {
         "ms": time_ms(torch, lambda: dict_outer(Sh, Wh)),
         "plain_ms": time_ms(torch, lambda: dict_outer(
             Sh, Wh, use_kernel=False)),
         "library_ms": time_ms(torch, lambda: (Sh.T @ Wh, Wh.T @ Wh)),
-        "bound_ms": t_bound, "bound_by": by}
+        **outer_bound((K * (P + A) + (P + A) * A) * 4,
+                      2 * K * A * P + K * A * (A + 1))}
     for name, t in out.items():
+        extra = (f", fp32 SIMT bound {t['bound_fp32_ms']:.4f}"
+                 if "bound_fp32_ms" in t else "")
         log(f"  {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
-            f"{t['bound_by']})")
+            f"{t['bound_by']}{extra})")
     return out
 
 

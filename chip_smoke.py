@@ -12,10 +12,14 @@ prints its final line):
 2. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, all started together) and load the library;
 3. kernels against their plain PyTorch versions on the card, at the
-   main path's shapes and at small, ragged and bf16 shapes;
+   main path's shapes and at small, ragged and bf16 shapes; the fused
+   starlet transforms (Phi, Phi^T) also pass the dot-product test and
+   give bit-identical results on a second call;
 4. the main path at survey width: ``solve("deconvolve", ...)`` on
    10 000 simulated 41x41 stamps with J = 4 starlet scales; the launch
-   counters, reset just before, must show every kernel on the path;
+   counters, reset just before, must show every kernel on the path
+   (one Phi and one Phi^T an iteration, no single smoothing) and one
+   host sync per chunk;
    then one more chunk of its iteration runs under torch.profiler, for
    the device time of each part and the device's idle share;
 5. the same solve at n = 256 on the card and on the CPU (plain
@@ -23,6 +27,7 @@ prints its final line):
 6. times from CUDA events (median of 30 runs after warm-up) for each
    kernel, its plain version and, where one exists, the one PyTorch
    call computing the same function, beside the memory/compute bound;
+   Phi and Phi^T also beside their route composed of single smoothings;
 7. the SCDL kernels (``admm_elwise``, ``dict_outer_pair``,
    ``dict_outer``) against their plain versions: the main path's
    shapes, a ragged K, a ragged and unaligned fp32 shape (K = 1001,
@@ -47,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +78,10 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
 # card against CPU, cost trajectories of the whole solve: cuFFT and
 # pocketfft round differently, and the reductions sum in another order
 PARITY_RTOL = 1e-4
+# the main path's setup runs the starlet transforms outside the loop:
+# 30 power-iteration steps (one Phi and one Phi^T each), the noise
+# calibration (one Phi) and the first coefficients CX (one Phi)
+SETUP_FORWARDS, SETUP_ADJOINTS = 32, 30
 
 # SCDL at the paper's grayscale patch shape (benchmarks/bench_scdl.py),
 # the SCDLConfig default of 512 atoms and the K ~ 40k both TPU kernels
@@ -88,6 +98,16 @@ def outer_tol(dtype_name, K):
     if dtype_name == "bfloat16":
         return dict(rtol=2e-2, atol=K * 2e-3)
     return dict(rtol=1e-4, atol=K * 1e-6)
+
+
+def cascade_tol(dtype_name, smoothings):
+    """Phi / Phi^T fused against composed: in fp32 each chained
+    smoothing adds its rounding differences (FMA contraction), so TOL
+    scales by their count (J for Phi, 2J - 1 for Phi^T); in bf16 the
+    kernel rounds where the composed path stores, so one rounding."""
+    if dtype_name == "bfloat16":
+        return TOL["bfloat16"]
+    return {k: v * smoothings for k, v in TOL["float32"].items()}
 
 
 def log(msg: str) -> None:
@@ -124,8 +144,17 @@ def build_phase():
     log(f"build: {path.name} in {secs:.2f} s")
     build_log = Path(str(path) + ".log")
     if build_log.exists():
+        # every source's seconds; the compiler's registers and spills for
+        # each kernel, of the starlet register kernels only at the sides
+        # the phases below run (one is built per side up to 41)
+        shown = True
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if "entry function" in line:
+                side = re.search(r"_regsI\w*?Li(\d+)E", line)
+                shown = side is None or int(side[1]) in (13, 32, STAMP)
+            if line.startswith("==") or shown and any(
+                    k in line for k in ("entry function", "registers",
+                                        "spill")):
                 log(f"  {line.strip()}")
     return secs
 
@@ -151,14 +180,16 @@ def compare(name, got, want, tol):
 def kernel_phase(torch):
     from repro_torch.kernels.condat_elwise.ops import (condat_dual,
                                                        condat_primal)
-    from repro_torch.kernels.starlet2d.ops import smooth
+    from repro_torch.kernels.starlet2d.kernel import MAX_REGS_SIDE
+    from repro_torch.kernels.starlet2d.ops import adjoint, forward, smooth
     g = torch.Generator(device="cuda").manual_seed(7)
     dev = "cuda"
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    errs = {"starlet2d.smooth": 0.0, "condat_elwise.primal": 0.0,
+    errs = {"starlet2d.smooth": 0.0, "starlet2d.forward": 0.0,
+            "starlet2d.adjoint": 0.0, "condat_elwise.primal": 0.0,
             "condat_elwise.dual": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     for shape, dtype, scales in (((MAIN_N, STAMP, STAMP), f32, range(4)),
@@ -174,6 +205,47 @@ def kernel_phase(torch):
                         TOL[str(dtype).split(".")[1]])
             if shape[0] == MAIN_N:
                 errs["starlet2d.smooth"] = max(errs["starlet2d.smooth"], e)
+    # square stamps up to MAX_REGS_SIDE wide run the register kernels
+    # (Phi^T in fp32 only), the rest the shared-memory ones: both designs
+    # at the survey stamp, at a square one of another width, and where
+    # the taps wrap around the stamp (13 wide at J = 5)
+    for shape, dtype, J in (((MAIN_N, STAMP, STAMP), f32, SCALES),
+                            ((100, STAMP, STAMP), bf16, SCALES),
+                            ((7, 13, 13), f32, 5), ((7, 13, 13), bf16, 5),
+                            ((9, 32, 32), f32, SCALES),
+                            ((7, 13, 17), f32, 5), ((7, 13, 17), bf16, 5),
+                            ((3, 64, 64), f32, SCALES)):
+        x, u = randn(shape, dtype), randn((J,) + shape, dtype)
+        name = str(dtype).split(".")[1]
+        regs = shape[1] == shape[2] <= MAX_REGS_SIDE
+        design = {True: "registers", False: "shared memory"}
+        got_f, got_a = forward(x, J), adjoint(u, J)
+        want_f = forward(x, J, use_kernel=False)
+        want_a = adjoint(u, J, use_kernel=False)
+        torch.cuda.synchronize()
+        ef = compare(f"forward {tuple(shape)} {dtype} J={J} "
+                     f"({design[regs]})", got_f, want_f,
+                     cascade_tol(name, J))
+        ea = compare(f"adjoint {(J,) + tuple(shape)} {dtype} J={J} "
+                     f"({design[regs and dtype == f32]})", got_a, want_a,
+                     cascade_tol(name, 2 * J - 1))
+        if shape[0] != MAIN_N:
+            continue
+        errs["starlet2d.forward"], errs["starlet2d.adjoint"] = ef, ea
+        # <Phi x, u> = <x, Phi^T u>, summed in fp64 (the JAX package's
+        # own bound, tests/test_imaging.py)
+        lhs = float(torch.sum(got_f.double() * u.double()))
+        rhs = float(torch.sum(x.double() * got_a.double()))
+        if not abs(lhs - rhs) <= 1e-4 * max(abs(lhs), 1.0):
+            raise AssertionError(f"dot-product test: <Phi x, u> = {lhs} "
+                                 f"but <x, Phi^T u> = {rhs}")
+        log(f"  dot-product test {tuple(shape)}: <Phi x, u> = {lhs:.9g}, "
+            f"<x, Phi^T u> = {rhs:.9g}")
+        if not (torch.equal(got_f, forward(x, J))
+                and torch.equal(got_a, adjoint(u, J))):
+            raise AssertionError(f"forward/adjoint {tuple(shape)}: two "
+                                 f"calls differ")
+        log(f"  forward/adjoint {tuple(shape)}: two calls bit-identical")
     for shape, dtype in (((MAIN_N, STAMP, STAMP), f32),
                          ((130, 21, 21), bf16)):
         X, Ua, gr = (randn(shape, dtype) for _ in range(3))
@@ -210,7 +282,8 @@ def kernel_phase(torch):
 
 
 # ----------------------------------------------------------------- 4
-DECONV_KERNELS = ("starlet2d.smooth", "condat_elwise.primal",
+DECONV_KERNELS = ("starlet2d.smooth", "starlet2d.forward",
+                  "starlet2d.adjoint", "condat_elwise.primal",
                   "condat_elwise.dual")
 SCDL_KERNELS = ("admm_elwise", "dict_outer_pair", "dict_outer")
 
@@ -223,8 +296,12 @@ def counters():
                                                           condat_primal_fwd)
     from repro_torch.kernels.dict_outer.kernel import (dict_outer_fwd,
                                                        dict_outer_pair_fwd)
-    from repro_torch.kernels.starlet2d.kernel import smooth_fwd
+    from repro_torch.kernels.starlet2d.kernel import (smooth_fwd,
+                                                      starlet_adjoint_fwd,
+                                                      starlet_forward_fwd)
     return {"starlet2d.smooth": smooth_fwd,
+            "starlet2d.forward": starlet_forward_fwd,
+            "starlet2d.adjoint": starlet_adjoint_fwd,
             "condat_elwise.primal": condat_primal_fwd,
             "condat_elwise.dual": condat_dual_fwd,
             "admm_elwise": admm_elwise_fwd,
@@ -287,8 +364,14 @@ def main_path_phase(torch):
             launches["condat_elwise.dual"] != it:
         raise AssertionError(f"primal/dual launches {launches} != "
                              f"iters_run {it}")
-    if launches["starlet2d.smooth"] < 11 * it + 4:
-        raise AssertionError(f"starlet launches {launches} < 11 * {it} + 4")
+    want = {"starlet2d.forward": it + SETUP_FORWARDS,
+            "starlet2d.adjoint": it + SETUP_ADJOINTS, "starlet2d.smooth": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"starlet launches {launches}, expected {want} "
+                             f"(one Phi and one Phi^T an iteration)")
+    if syncs_per_chunk != 1:
+        raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
+                             f"expected 1")
     if any(launches[k] for k in SCDL_KERNELS):
         raise AssertionError(f"SCDL kernels launched on the deconvolution "
                              f"path: {launches}")
@@ -322,7 +405,9 @@ def main_path_phase(torch):
 
 # ---------------------------------------------------------------- 4b
 # kernel-name fragments -> the part of the iteration they belong to
-PARTS = (("starlet2d.smooth", ("starlet_smooth",)),
+PARTS = (("starlet2d.forward", ("starlet_forward",)),
+         ("starlet2d.adjoint", ("starlet_adjoint",)),
+         ("starlet2d.smooth", ("starlet_smooth",)),
          ("condat_elwise.primal", ("condat_primal",)),
          ("condat_elwise.dual", ("condat_dual",)),
          ("fft", ("fft", "FFT")))
@@ -374,7 +459,7 @@ def profile_window(torch, body, iters, parts_by_key):
 def profile_phase(torch, bundle):
     """One chunk of the main path's iteration, continued from its final
     state, under ``torch.profiler``: device time per iteration for each
-    part (the three kernels, cuFFT, the rest), and the device's idle
+    part (the four kernels, cuFFT, the rest), and the device's idle
     share of the window's wall time."""
     from repro_torch.imaging.condat import SolverConfig
     from repro_torch.imaging.deconvolve import make_light_step_fn
@@ -460,10 +545,49 @@ def outer_bound(nbytes, flops):
             "bound_tf32x3_ms": max(t_bytes, t_tf32x3)}
 
 
+def composed_forward(torch, x, J):
+    """Phi composed of J single-smoothing kernels, with the differences
+    and the stack in torch (the route before the fused cascade)."""
+    from repro_torch.kernels.starlet2d.ops import smooth
+    from repro_torch.kernels.starlet2d.ref import cascade
+    return torch.stack(cascade(x, J, lambda c, j: smooth(c, scale=j))[0])
+
+
+def composed_adjoint(u, J):
+    """Phi^T composed of Horner's 2J - 1 single-smoothing kernels, with
+    the differences and sums in torch (the route before the fused
+    cascade)."""
+    from repro_torch.kernels.starlet2d.ops import smooth
+    from repro_torch.kernels.starlet2d.ref import horner
+    return horner(u, J, lambda c, j: smooth(c, scale=j))
+
+
+def starlet_conv(torch, J, adjoint):
+    """Phi (or, with ``adjoint``, Phi^T) on STAMP x STAMP stamps as one
+    circular ``Conv2d``, the library yardstick of phase 6 (the port never
+    calls it).  Detail scale j is x - H_0 x for j = 0 and
+    H_{j-1}..H_0 x - H_j..H_0 x after: a periodic convolution with the
+    plain cascade's response to a centred delta, which wraps (folds modulo
+    the stamp) like the cascade itself.  Each response is symmetric, so
+    the correlation Conv2d computes equals the convolution, and Phi^T
+    (the sum over j of the transposed, i.e. the same, filters) is the
+    mirror convolution from J channels to one."""
+    from repro_torch.kernels.starlet2d.ops import forward
+    delta = torch.zeros((1, STAMP, STAMP), device="cuda")
+    delta[0, STAMP // 2, STAMP // 2] = 1.0
+    filters = forward(delta, J, use_kernel=False)        # (J, 1, S, S)
+    channels = (J, 1) if adjoint else (1, J)
+    conv = torch.nn.Conv2d(*channels, STAMP, padding=STAMP // 2,
+                           padding_mode="circular", bias=False).to("cuda")
+    with torch.no_grad():
+        conv.weight.copy_(filters.transpose(0, 1) if adjoint else filters)
+    return conv
+
+
 def timing_phase(torch):
     from repro_torch.kernels.condat_elwise.ops import (condat_dual,
                                                        condat_primal)
-    from repro_torch.kernels.starlet2d.ops import smooth
+    from repro_torch.kernels.starlet2d.ops import adjoint, forward, smooth
     g = torch.Generator(device="cuda").manual_seed(11)
     dev = "cuda"
     out = {}
@@ -494,6 +618,42 @@ def timing_phase(torch):
         "bound_ms": t_bound, "bound_by": by,
         "ms_by_scale": {str(j): v["ms"] for j, v in by_scale.items()},
         "library_max_abs_err": lib_err}
+
+    u = torch.randn((SCALES,) + tuple(x.shape), generator=g, device=dev)
+    # each reads its input planes once and writes its outputs once: 1 + J
+    # planes of fp32; per element each smoothing costs 18 flops and each
+    # difference or sum one.  At this shape (fp32, 41 x 41: the register
+    # kernels) Phi and Phi^T each run J smoothings.
+    for name, fn, arg, composed, adj in (
+            ("starlet2d.forward", forward, x,
+             lambda x, J: composed_forward(torch, x, J), False),
+            ("starlet2d.adjoint", adjoint, u, composed_adjoint, True)):
+        t_bound, by = bound((1 + SCALES) * elems * 4, 19 * SCALES * elems)
+        conv = starlet_conv(torch, SCALES, adj)
+        # the convolution takes the stamp axis first: (N, 1) -> (N, J) for
+        # Phi, a (N, J) view of the scale-major planes -> (N, 1) for Phi^T
+        arg4 = arg.transpose(0, 1) if adj else arg[:, None]
+        with torch.no_grad():
+            lib = conv(arg4)
+            lib = lib[:, 0] if adj else lib.transpose(0, 1)
+            # a 41 x 41 sum an output, in another order (or by FFT)
+            lib_err = compare(f"{name} as one circular Conv2d", lib,
+                              fn(arg, SCALES, use_kernel=False),
+                              dict(rtol=1e-4, atol=1e-4))
+            del lib
+            lib_ms = time_ms(torch, lambda: conv(arg4))
+        out[name] = {
+            "ms": time_ms(torch, lambda: fn(arg, SCALES)),
+            "plain_ms": time_ms(torch, lambda: fn(arg, SCALES,
+                                                   use_kernel=False)),
+            "composed_ms": time_ms(torch, lambda: composed(arg, SCALES)),
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "bound_ms": t_bound, "bound_by": by}
+        log(f"  {name}: {out[name]['ms']:.4f} ms (plain "
+            f"{out[name]['plain_ms']:.4f}, composed of single smoothings "
+            f"{out[name]['composed_ms']:.4f}, one circular Conv2d "
+            f"{lib_ms:.4f}, bound {t_bound:.4f} by {by})")
+    del u
 
     X, Ua, gr = (torch.randn((MAIN_N, STAMP, STAMP), generator=g, device=dev)
                  for _ in range(3))
@@ -785,6 +945,12 @@ def scdl_timing_phase(torch):
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
+    "starlet2d.forward": ("src/repro_torch/csrc/starlet2d.cu",
+                          "src/repro/kernels/starlet2d/kernel.py:45 as "
+                          "composed by src/repro/kernels/starlet2d/ops.py:63"),
+    "starlet2d.adjoint": ("src/repro_torch/csrc/starlet2d.cu",
+                          "src/repro/kernels/starlet2d/kernel.py:45 as "
+                          "composed by src/repro/kernels/starlet2d/ops.py:68"),
     "condat_elwise.primal": ("src/repro_torch/csrc/condat_elwise.cu",
                              "src/repro/kernels/condat_elwise/kernel.py:65"),
     "condat_elwise.dual": ("src/repro_torch/csrc/condat_elwise.cu",

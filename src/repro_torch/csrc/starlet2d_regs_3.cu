@@ -1,0 +1,7 @@
+// Part 3 of the register kernels of the fused starlet transforms: the
+// square sides kPartFirst[3] .. kPartFirst[4] - 1 (see starlet2d.cuh).
+#include "starlet2d.cuh"
+
+template cudaError_t repro::starlet::regs_part<3>(bool, int, const void*,
+                                                     void*, int, int, int,
+                                                     cudaStream_t);

@@ -5,9 +5,11 @@ The dictionary Phi of the paper's sparsity-regularised deconvolution
 each smoothing is exactly self-adjoint and the adjoint cascade passes
 the dot-product test to machine precision.
 
-Every smoothing goes through ``kernels/starlet2d/ops.smooth`` on a
-(N, H, W) view of the input: the CUDA kernel on the card, the plain
-version on the CPU — so no plain smoothing runs on the card.
+``smooth``, ``forward`` and ``adjoint`` go through the batched ops of
+``kernels/starlet2d/ops`` on a (N, H, W) view of the input: on the card
+one smoothing or one fused cascade a call, on the CPU the plain versions
+— so no plain smoothing runs on the card.  ``decompose`` is composed of
+``smooth``.
 
 Random draws are a seam: the JAX module draws its power-iteration start
 from ``PRNGKey(0)`` and its Monte-Carlo noise from ``PRNGKey(1)``.
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device, to_device
 from repro_torch.kernels.starlet2d import ops as starlet_batch
+from repro_torch.kernels.starlet2d.ref import cascade
 
 # serializes cold misses of the memoized default-start spectral norm so
 # concurrent callers never duplicate the 30-step power iteration
@@ -44,14 +47,8 @@ def decompose(img: torch.Tensor, n_scales: int) -> torch.Tensor:
     Output[0:n_scales] are detail scales, output[-1] is the coarse scale.
     Perfect reconstruction: the sum over axis 0 is the input.
     """
-    scales = []
-    c = img
-    for j in range(n_scales):
-        c_next = smooth(c, j)
-        scales.append(c - c_next)
-        c = c_next
-    scales.append(c)
-    return torch.stack(scales)
+    details, coarse = cascade(img, n_scales, smooth)
+    return torch.stack(details + [coarse])
 
 
 def recompose(coeffs: torch.Tensor) -> torch.Tensor:
@@ -60,22 +57,28 @@ def recompose(coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def forward(img: torch.Tensor, n_scales: int) -> torch.Tensor:
-    """Phi: detail scales only (the paper drops the coarse scale)."""
-    return decompose(img, n_scales)[:-1]
+    """Phi: detail scales only (the paper drops the coarse scale),
+    (..., H, W) -> (n_scales, ..., H, W)."""
+    h, w = img.shape[-2:]
+    flat = img.reshape(-1, h, w).contiguous()
+    return starlet_batch.forward(flat, n_scales).reshape(
+        (n_scales,) + tuple(img.shape))
 
 
 def adjoint(coeffs: torch.Tensor, n_scales: int) -> torch.Tensor:
-    """Phi^T for :func:`forward`, Horner-style (2J - 1 smoothings):
+    """Phi^T for :func:`forward`, (n_scales, ..., H, W) -> (..., H, W):
 
         Phi^T w = v_0 + H_0 (v_1 + H_1 (v_2 + ... H_{J-2} v_{J-1}))
 
-    with v_j = (I - H_j) w_j (see ``repro.imaging.starlet.adjoint``).
+    with v_j = (I - H_j) w_j (see ``repro.imaging.starlet.adjoint``),
+    evaluated as ``kernels/starlet2d/kernel.starlet_adjoint_fwd`` says on
+    the card and Horner-style (2J - 1 smoothings) on the CPU.  Only the
+    first ``n_scales`` planes of ``coeffs`` are read.
     """
-    acc = coeffs[n_scales - 1] - smooth(coeffs[n_scales - 1], n_scales - 1)
-    for j in range(n_scales - 2, -1, -1):
-        v = coeffs[j] - smooth(coeffs[j], j)
-        acc = v + smooth(acc, j)
-    return acc
+    h, w = coeffs.shape[-2:]
+    flat = coeffs[:n_scales].reshape(n_scales, -1, h, w).contiguous()
+    return starlet_batch.adjoint(flat, n_scales).reshape(
+        tuple(coeffs.shape[1:]))
 
 
 def _cpu_normal(seed: int, shape) -> torch.Tensor:

@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Union
 
@@ -49,6 +50,8 @@ _F = ctypes.c_float
 # cudaError_t; a launch takes the stream as its last argument)
 _SIGNATURES = {
     "repro_starlet_smooth": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_starlet_forward": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_starlet_adjoint": (_P, _P, _I, _I, _I, _I, _I, _P),
     "repro_condat_primal": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "repro_condat_dual": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "repro_admm_elwise": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I, _P),
@@ -110,8 +113,9 @@ def library_path() -> Path:
 def build_library() -> Path:
     """Compile and link the kernels unless the library for these
     sources already exists.  The compiler's output (``-Xptxas -v``:
-    registers, shared memory, spills) is kept beside the library as
-    ``<library>.log``.  Returns the library's path."""
+    registers, shared memory, spills) and each source's seconds to build
+    are kept beside the library as ``<library>.log``.  Returns the
+    library's path."""
     out = library_path()
     if out.exists():
         return out
@@ -120,18 +124,26 @@ def build_library() -> Path:
     units = sorted(CSRC.glob("*.cu"))
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in units]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-             "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(units, objs)]
-        logs = []
-        failed = []
-        for src, p in zip(units, procs):
-            text, _ = p.communicate()
-            logs.append(f"== {src.name}\n{text}")
-            if p.returncode != 0:
-                failed.append(src.name)
+        # each compiler's output goes to a file (a pipe left unread while
+        # another unit finishes could fill and stall it)
+        outs = [Path(tmp) / (src.stem + ".log") for src in units]
+        start = time.perf_counter()
+        procs = []
+        for src, obj, log in zip(units, objs, outs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                     "-o", str(obj)], stdout=f, stderr=subprocess.STDOUT))
+        secs = {}
+        while len(secs) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in secs and p.poll() is not None:
+                    secs[i] = time.perf_counter() - start
+            time.sleep(0.05)
+        logs = [f"== {src.name} ({secs[i]:.1f} s)\n{log.read_text()}"
+                for i, (src, log) in enumerate(zip(units, outs))]
+        failed = [src.name for src, p in zip(units, procs)
+                  if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n"
                                + "\n".join(logs))

@@ -41,3 +41,41 @@ def test_every_entry_point_is_bound():
 @pytest.mark.parametrize("name", sorted(common._SIGNATURES))
 def test_signature_matches_the_c_declaration(name):
     assert common._SIGNATURES[name] == _declarations()[name]
+
+
+def test_build_compiles_each_source_apart_and_logs_it(tmp_path,
+                                                      monkeypatch):
+    """One compiler process per ``.cu`` (headers are only hashed), each
+    one's output and seconds kept in the library's log; a stand-in
+    ``nvcc`` records what it was asked to do."""
+    import sys
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "shared.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(args) + '\\n')\n"
+        "open(args[args.index('-o') + 1], 'wb').close()\n"
+        "if '-c' in args:\n"
+        "    print('ptxas info: compiled', args[args.index('-c') + 1])\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(common, "CSRC", csrc)
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(common, "_nvcc", lambda: str(nvcc))
+    out = common.build_library()
+    assert out.exists() and out == common.library_path()
+    compiled = [line.split(" -c ")[1].split()[0]
+                for line in calls.read_text().splitlines() if " -c " in line]
+    assert sorted(compiled) == [str(csrc / "a.cu"), str(csrc / "b.cu")]
+    log = (out.parent / (out.name + ".log")).read_text()
+    for name in ("a.cu", "b.cu"):
+        assert re.search(rf"^== {name} \(\d+\.\d s\)\n"
+                         rf"ptxas info: compiled .*{name}$", log, re.M)
+    # built once: a second call finds the library for these sources
+    assert common.build_library() == out
+    assert len(calls.read_text().splitlines()) == 3

@@ -41,7 +41,31 @@ prints its final line):
    its iteration under torch.profiler;
 9. the SCDL solve at K = 2048, A = 128 on the card and on the CPU,
    cost trajectories compared;
-10. times of the SCDL kernels, as in phase 6.
+10. times of the SCDL kernels, as in phase 6;
+11. the Jacobi kernels (``jacobi.eigh``, ``jacobi.svd``) against
+    ``torch.linalg`` at r = 24, 25, 40, 64 on random symmetric matrices,
+    Grams of rank r and r / 2 and a cluster of equal eigenvalues
+    (reconstruction, orthogonality, values, the count above the low-rank
+    solver's 1e-6 clip, the sweeps each took); two calls bit-identical,
+    and a batch of four matrices bit-identical to their own calls;
+    the whole randomized SVT at (10 000, 1681), r = 24, card route
+    against plain route, and its host syncs (none);
+12. the low-rank main path: ``solve("deconvolve", ...,
+    cfg=SolverConfig(mode="lowrank", lam=0.05, rank=16))`` on phase 4's
+    stamps, 60 iterations; launches (one primal pass with X_bar and one
+    ``jacobi.svd`` an iteration, one ``jacobi.eigh`` an iteration and one
+    a chunk, no starlet or dual pass) and one host sync per chunk; then
+    one more chunk under torch.profiler;
+13. that solve at n = 256 on the card and on the CPU, cost trajectories
+    compared;
+14. ``solve("lowrank", Y, M)`` completing a rank-4 (10 000, 1681) matrix
+    from 60 % of its entries, 60 iterations, one host sync per chunk:
+    with the range finder of tests/test_problem_api.py (r = 24), too
+    narrow at this size for the algebra to converge (reported), then at
+    r = 64, where the cost falls and the matrix is recovered; then card
+    against CPU at (1024, 128);
+15. times of the two-output primal pass and of the Jacobi kernels at
+    r = 24, 40 and 64 beside ``torch.linalg``.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  The whole report also goes to
@@ -60,6 +84,7 @@ import time
 import warnings
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -259,12 +284,13 @@ def kernel_phase(torch):
         rn, rb = condat_primal(X, Ua, gr, tau, with_xbar=True,
                                use_kernel=False)
         torch.cuda.synchronize()
-        e = max(e, compare(f"primal+xbar X_new {tuple(shape)} {dtype}",
-                           xn, rn, tol),
-                compare(f"primal+xbar X_bar {tuple(shape)} {dtype}",
-                        xb, rb, tol))
+        e_xbar = max(compare(f"primal+xbar X_new {tuple(shape)} {dtype}",
+                             xn, rn, tol),
+                     compare(f"primal+xbar X_bar {tuple(shape)} {dtype}",
+                             xb, rb, tol))
         if shape[0] == MAIN_N:
-            errs["condat_elwise.primal"] = e
+            errs["condat_elwise.primal"] = max(e, e_xbar)
+            errs["condat_elwise.primal_xbar"] = e_xbar
     for shape, dtype in (((SCALES, MAIN_N, STAMP, STAMP), f32),
                          ((3, 100, STAMP, STAMP), bf16)):
         U, Cn, Co = (randn(shape, dtype) for _ in range(3))
@@ -288,34 +314,44 @@ DECONV_KERNELS = ("starlet2d.smooth", "starlet2d.forward",
 SCDL_KERNELS = ("admm_elwise", "dict_outer_pair", "dict_outer")
 
 
+LOWRANK_KERNELS = ("condat_elwise.primal_xbar", "jacobi.eigh", "jacobi.svd")
+
+
 def counters():
-    """Every kernel wrapper, by kernel name: each holds its launch
-    count in ``.launches``."""
+    """Every kernel, by name: the wrapper that launches it and the
+    attribute holding its launch count (the two-output primal pass is
+    counted apart as well as in ``condat_elwise.primal``)."""
     from repro_torch.kernels.admm_elwise.kernel import admm_elwise_fwd
     from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
                                                           condat_primal_fwd)
     from repro_torch.kernels.dict_outer.kernel import (dict_outer_fwd,
                                                        dict_outer_pair_fwd)
+    from repro_torch.kernels.jacobi.kernel import eigh_fwd, svd_fwd
     from repro_torch.kernels.starlet2d.kernel import (smooth_fwd,
                                                       starlet_adjoint_fwd,
                                                       starlet_forward_fwd)
-    return {"starlet2d.smooth": smooth_fwd,
-            "starlet2d.forward": starlet_forward_fwd,
-            "starlet2d.adjoint": starlet_adjoint_fwd,
-            "condat_elwise.primal": condat_primal_fwd,
-            "condat_elwise.dual": condat_dual_fwd,
-            "admm_elwise": admm_elwise_fwd,
-            "dict_outer_pair": dict_outer_pair_fwd,
-            "dict_outer": dict_outer_fwd}
+    fns = {"starlet2d.smooth": smooth_fwd,
+           "starlet2d.forward": starlet_forward_fwd,
+           "starlet2d.adjoint": starlet_adjoint_fwd,
+           "condat_elwise.primal": condat_primal_fwd,
+           "condat_elwise.dual": condat_dual_fwd,
+           "admm_elwise": admm_elwise_fwd,
+           "dict_outer_pair": dict_outer_pair_fwd,
+           "dict_outer": dict_outer_fwd,
+           "jacobi.eigh": eigh_fwd,
+           "jacobi.svd": svd_fwd}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    out["condat_elwise.primal_xbar"] = (condat_primal_fwd, "launches_xbar")
+    return out
 
 
 def reset_launches():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def run_counting_syncs(torch, run):
@@ -339,6 +375,13 @@ def run_counting_syncs(torch, run):
             torch.cuda.set_sync_debug_mode(0)
     steady = [b - a for a, b in zip(syncs_at, syncs_at[1:])]
     return out, wall, statistics.median(steady) if steady else None
+
+
+def evaluated_costs(costs, chunk):
+    """The costs a ``cost_every="chunk"`` run evaluated: each chunk's
+    last and the run's last."""
+    return [costs[i] for i in range(len(costs))
+            if (i + 1) % chunk == 0 or i == len(costs) - 1]
 
 
 def main_path_phase(torch):
@@ -372,12 +415,10 @@ def main_path_phase(torch):
     if syncs_per_chunk != 1:
         raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
                              f"expected 1")
-    if any(launches[k] for k in SCDL_KERNELS):
-        raise AssertionError(f"SCDL kernels launched on the deconvolution "
-                             f"path: {launches}")
-    costs = sol.log.costs
-    evaluated = [costs[i] for i in range(len(costs))
-                 if (i + 1) % MAIN_CHUNK == 0 or i == len(costs) - 1]
+    if any(launches[k] for k in SCDL_KERNELS + LOWRANK_KERNELS):
+        raise AssertionError(f"SCDL or low-rank kernels launched on the "
+                             f"sparse deconvolution path: {launches}")
+    evaluated = evaluated_costs(sol.log.costs, MAIN_CHUNK)
     if not all(math.isfinite(c) for c in evaluated):
         raise AssertionError(f"non-finite evaluated cost: {evaluated}")
     if not evaluated[-1] < evaluated[0]:
@@ -476,9 +517,32 @@ def profile_phase(torch, bundle):
 
 
 # ----------------------------------------------------------------- 5
-def parity_phase(torch):
+def cost_gap(runs, label, rtol=PARITY_RTOL):
+    """Card against CPU: equal ``iters_run`` and finite cost entries, the
+    largest relative gap of the cost trajectories (held to ``rtol``
+    unless it is None) and the largest absolute gap of the iterates (of
+    each array, where the solution is a tuple)."""
     import numpy as np
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    if gpu.log.iters_run != cpu.log.iters_run:
+        raise AssertionError(f"{label}: iters_run differs between card and "
+                             f"CPU")
+    c_gpu, c_cpu = np.asarray(gpu.log.costs), np.asarray(cpu.log.costs)
+    fin = np.isfinite(c_cpu)
+    if not np.array_equal(fin, np.isfinite(c_gpu)) or not fin.any():
+        raise AssertionError(f"{label}: finite cost entries differ")
+    gap = float(np.max(np.abs(c_gpu[fin] - c_cpu[fin]) / np.abs(c_cpu[fin])))
+    pairs = zip(gpu.x, cpu.x) if isinstance(gpu.x, (tuple, list)) \
+        else [(gpu.x, cpu.x)]
+    x_gap = max(float(np.max(np.abs(a - b))) for a, b in pairs)
+    log(f"{label}: max relative cost gap {gap:.3e} (rtol {rtol}), max abs "
+        f"x gap {x_gap:.3e}")
+    if rtol is not None and not gap <= rtol:
+        raise AssertionError(f"{label}: card/CPU cost gap {gap} > {rtol}")
+    return gap, x_gap
 
+
+def parity_phase(torch):
     from repro_torch.core.problem import solve
     from repro_torch.imaging.condat import SolverConfig
     from repro_torch.imaging.psf import simulate
@@ -491,19 +555,7 @@ def parity_phase(torch):
                     device=dev, max_iter=PARITY_ITERS, chunk=PARITY_CHUNK,
                     cost_every="chunk", tol=1e-5)
         runs[dev] = sol
-    c_gpu = np.asarray(runs["cuda"].log.costs)
-    c_cpu = np.asarray(runs["cpu"].log.costs)
-    if runs["cuda"].log.iters_run != runs["cpu"].log.iters_run:
-        raise AssertionError("iters_run differs between card and CPU")
-    fin = np.isfinite(c_cpu)
-    if not np.array_equal(fin, np.isfinite(c_gpu)):
-        raise AssertionError("finite cost entries differ")
-    gap = float(np.max(np.abs(c_gpu[fin] - c_cpu[fin]) / np.abs(c_cpu[fin])))
-    x_gap = float(np.max(np.abs(runs["cuda"].x - runs["cpu"].x)))
-    log(f"card vs CPU at n={PARITY_N}: max relative cost gap {gap:.3e} "
-        f"(rtol {PARITY_RTOL}), max abs x gap {x_gap:.3e}")
-    if not gap <= PARITY_RTOL:
-        raise AssertionError(f"card/CPU cost gap {gap} > {PARITY_RTOL}")
+    gap, x_gap = cost_gap(runs, f"card vs CPU at n={PARITY_N}")
     return {"n": PARITY_N, "max_rel_cost_gap": gap, "max_abs_x_gap": x_gap}
 
 
@@ -805,15 +857,14 @@ def scdl_main_path_phase(torch):
     if launches["admm_elwise"] != it or launches["dict_outer_pair"] != it:
         raise AssertionError(f"admm_elwise/dict_outer_pair launches "
                              f"{launches} != iters_run {it}")
-    if any(launches[k] for k in DECONV_KERNELS + ("dict_outer",)):
+    if any(launches[k] for k in DECONV_KERNELS + LOWRANK_KERNELS
+           + ("dict_outer",)):
         raise AssertionError(f"kernels off the SCDL path launched: "
                              f"{launches}")
     if syncs_per_chunk != 1:
         raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
                              f"expected 1")
-    costs = sol.log.costs
-    evaluated = [costs[i] for i in range(SCDL_CHUNK - 1, len(costs),
-                                         SCDL_CHUNK)]
+    evaluated = evaluated_costs(sol.log.costs, SCDL_CHUNK)
     if not all(math.isfinite(c) for c in evaluated):
         raise AssertionError(f"non-finite NRMSE: {evaluated}")
     if not evaluated[-1] < evaluated[0]:
@@ -860,8 +911,6 @@ def scdl_profile_phase(torch, bundle, cfg):
 
 # ----------------------------------------------------------------- 9
 def scdl_parity_phase(torch):
-    import numpy as np
-
     from repro_torch.core.problem import solve
     from repro_torch.data.synthetic import coupled_patches
     from repro_torch.imaging.scdl import SCDLConfig
@@ -873,19 +922,9 @@ def scdl_parity_phase(torch):
                        max_iter=SCDL_PARITY_ITERS, chunk=SCDL_PARITY_CHUNK,
                        cost_every="chunk")
             for dev in ("cuda", "cpu")}
-    c_gpu = np.asarray(runs["cuda"].log.costs)
-    c_cpu = np.asarray(runs["cpu"].log.costs)
-    fin = np.isfinite(c_cpu)
-    if not np.array_equal(fin, np.isfinite(c_gpu)) or not fin.any():
-        raise AssertionError("finite cost entries differ")
-    gap = float(np.max(np.abs(c_gpu[fin] - c_cpu[fin]) / np.abs(c_cpu[fin])))
-    x_gap = max(float(np.max(np.abs(a - b)))
-                for a, b in zip(runs["cuda"].x, runs["cpu"].x))
-    log(f"scdl card vs CPU at K={SCDL_PARITY_K} A={SCDL_PARITY_A}: max "
-        f"relative NRMSE gap {gap:.3e} (rtol {PARITY_RTOL}), max abs "
-        f"dictionary gap {x_gap:.3e}")
-    if not gap <= PARITY_RTOL:
-        raise AssertionError(f"card/CPU NRMSE gap {gap} > {PARITY_RTOL}")
+    # the cost is the NRMSE, x the two dictionaries
+    gap, x_gap = cost_gap(runs, f"scdl card vs CPU at K={SCDL_PARITY_K} "
+                                f"A={SCDL_PARITY_A}")
     return {"K": SCDL_PARITY_K, "A": SCDL_PARITY_A,
             "max_rel_cost_gap": gap, "max_abs_dict_gap": x_gap}
 
@@ -942,6 +981,512 @@ def scdl_timing_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------- 11
+# the low-rank paths: the deconvolution with the config of
+# examples/psf_deconvolution.py:93 (rank 16: the range finder's r = 16 + 8
+# = 24) on the main path's stamps, and the completion workload at the
+# same matrix shape (n, S * S) with tests/test_problem_api.py:233's config
+# (rank 12 + oversample 12: r = 24)
+LR_RANK, LR_LAM = 16, 0.05
+LR_ITERS, LR_CHUNK = 60, 12
+LR_PARITY_N, LR_PARITY_ITERS, LR_PARITY_CHUNK = 256, 24, 8
+COMP_N, COMP_P, COMP_TRUE_RANK, COMP_OBSERVED = MAIN_N, STAMP * STAMP, 4, 0.6
+COMP_PARITY_N, COMP_PARITY_P = 1024, 128
+# the completion's card route against the fp64 trajectory of its algebra:
+# within twice the CPU route's distance (tests/test_torch_lowrank.py's
+# rule for the port against the JAX package), plus a floor for a CPU
+# route that happens to land near the fp64 value
+COMP_FP64_FACTOR, COMP_FP64_FLOOR = 2.0, 1e-6
+# 25: an odd side, where each step leaves one index out
+JACOBI_RS = (24, 25, 40, 64)
+FP32_EPS = 2.0 ** -23
+# Jacobi against torch.linalg, in fp32 units of r eps: reconstruction
+# ||A - V diag(w) V^T||_F / ||A||_F, eigenvalue or singular value error /
+# max |value| and orthogonality ||V^T V - I||_F within 4 r eps (the
+# kernels rotate in fp64, so their outputs carry the final fp32 rounding:
+# about 0.1 r eps in a model of the kernel, tools/lowrank_model.py
+# jacobi, where the same rotations in fp32 leave V up to 10 r eps from
+# orthogonal); U checked on the columns whose singular value exceeds 1e-3
+# of the largest (a zero singular value has no direction)
+JACOBI_REC, JACOBI_VALUES, JACOBI_ORTH = 4, 4, 4
+# the whole randomized SVT, card route against the plain route: the range
+# finder scales each Gram direction by lambda^-1/2, which magnifies fp32
+# rounding; two exact fp32 factorizations give routes about 4e-5 apart in
+# relative Frobenius norm at this shape
+SVT_REL = 2e-4
+
+
+def jacobi_cases(torch, r, g):
+    """(name, matrix, expected count of eigenvalues above 1e-6 of the
+    largest or None): a random symmetric matrix, Grams y^T y of rank r and
+    r / 2, and eigenvalues with a cluster of r / 3 equal ones."""
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(r, r)
+    yield "symmetric", 0.5 * (x + x.T), None
+    y = randn(4 * r, r)
+    yield "gram rank r", y.T @ y, r
+    y = randn(4 * r, r // 2) @ randn(r // 2, r)
+    yield "gram rank r/2", y.T @ y, r // 2
+    q = torch.linalg.qr(randn(r, r)).Q
+    lam = torch.cat([torch.full((r // 3,), 2.0, device=dev),
+                     randn(r - r // 3)])
+    yield "cluster", (q * lam) @ q.T, None
+
+
+def _rel_fro(torch, a, b):
+    """||a - b||_F / ||b||_F, in fp64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _orth_err(torch, M):
+    M = M.double()
+    return float(torch.linalg.norm(M.T @ M - torch.eye(
+        M.shape[1], dtype=M.dtype, device=M.device)))
+
+
+def count_syncs(torch, fn):
+    """Host syncs of one call of ``fn`` (torch's sync debug mode), each
+    as the source line that made it."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def jacobi_phase(torch):
+    """The Jacobi kernels against torch.linalg on the card; the whole
+    randomized SVT, card route against plain route; the route's host
+    syncs (none: torch.linalg.qr is the one library factorization left
+    on it)."""
+    from repro_torch.imaging.lowrank import (make_test_matrix,
+                                             randomized_svt_local)
+    from repro_torch.kernels.jacobi import kernel as jk
+    from repro_torch.kernels.jacobi.ops import eigh, svd
+    g = torch.Generator(device="cuda").manual_seed(23)
+    errs = {"jacobi.eigh": 0.0, "jacobi.svd": 0.0}
+    sweeps = {}
+    main_cases = []
+    for r in JACOBI_RS:
+        tol_r = r * FP32_EPS
+        for name, A, rank in jacobi_cases(torch, r, g):
+            if r == 24:
+                main_cases.append(A)
+            what = f"r={r} {name}"
+            w, V = eigh(A)
+            w_only = eigh(A, compute_v=False)
+            sw_e = int(jk.eigh_fwd.sweeps)
+            w_ref = eigh(A, use_kernel=False)[0]
+            U, sv, Vh = svd(A)
+            sw_s = int(jk.svd_fwd.sweeps)
+            sv_ref = torch.linalg.svdvals(A)
+            torch.cuda.synchronize()
+            scale = float(w_ref.abs().max())
+            rec = _rel_fro(torch, (V * w) @ V.T, A)
+            orth = _orth_err(torch, V)
+            e_w = float((w - w_ref).abs().max())
+            clip = int((w > 1e-6 * w.max()).sum())
+            clip_ref = int((w_ref > 1e-6 * w_ref.max()).sum())
+            s_rec = _rel_fro(torch, (U * sv) @ Vh, A)
+            s_orth = _orth_err(torch, Vh.T)
+            big = sv > 1e-3 * sv[0]
+            u_orth = _orth_err(torch, U[:, big])
+            e_s = float((sv - sv_ref).abs().max())
+            s_rank = int((sv > 1e-6 * sv[0]).sum())
+            s_rank_ref = int((sv_ref > 1e-6 * sv_ref[0]).sum())
+            log(f"  {what}: eigh sweeps {sw_e}, rec {rec:.2e}, orth "
+                f"{orth:.2e}, eigenvalue err {e_w:.2e} (of {scale:.3g}), "
+                f"above the clip {clip}/{clip_ref}; svd sweeps {sw_s}, rec "
+                f"{s_rec:.2e}, orth V {s_orth:.2e} U {u_orth:.2e}, "
+                f"singular value err {e_s:.2e}, rank {s_rank}/{s_rank_ref}")
+            sweeps[what] = {"eigh": sw_e, "svd": sw_s}
+            checks = {
+                "eigh reconstruction": rec <= JACOBI_REC * tol_r,
+                "eigh orthogonality": orth <= JACOBI_ORTH * tol_r,
+                "eigenvalues": e_w <= JACOBI_VALUES * tol_r * scale,
+                "ascending": bool((w[1:] >= w[:-1]).all()),
+                "eigenvalues without vectors": torch.equal(w_only, w),
+                "clip count": clip == clip_ref and rank in (None, clip),
+                "svd reconstruction": s_rec <= JACOBI_REC * tol_r,
+                "svd orthogonality": max(s_orth, u_orth)
+                <= JACOBI_ORTH * tol_r,
+                "singular values": e_s <= JACOBI_VALUES * tol_r
+                * float(sv_ref[0]),
+                "descending": bool((sv[1:] <= sv[:-1]).all()),
+                "svd rank": s_rank == s_rank_ref
+                and rank in (None, s_rank)}
+            failed = [k for k, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError(f"jacobi {what}: {failed}")
+            if r == 24 and rank == r:
+                # the main path's size and kind of matrix
+                errs["jacobi.eigh"] = e_w
+                errs["jacobi.svd"] = e_s
+                again = (eigh(A), svd(A))
+                if not (all(torch.equal(a, b) for a, b in zip(again[0],
+                                                               (w, V)))
+                        and all(torch.equal(a, b) for a, b in zip(
+                            again[1], (U, sv, Vh)))):
+                    raise AssertionError(f"jacobi {what}: two calls differ")
+                log(f"  jacobi {what}: two calls bit-identical")
+    # a batch, one block a matrix: each matrix's result bit for bit
+    batch = torch.stack(main_cases)
+    (w_b, V_b), (U_b, s_b, Vh_b) = eigh(batch), svd(batch)
+    for i, A in enumerate(main_cases):
+        if not (all(torch.equal(a, b[i]) for a, b in zip(eigh(A),
+                                                         (w_b, V_b)))
+                and all(torch.equal(a, b[i]) for a, b in zip(
+                    svd(A), (U_b, s_b, Vh_b)))):
+            raise AssertionError(f"jacobi: batch entry {i} differs from "
+                                 f"its own call")
+    log(f"  jacobi batch {tuple(batch.shape)}: every entry bit-identical "
+        f"to its own call")
+    # the whole SVT at the main path's shape: a rank-16 signal and noise,
+    # threshold inside the signal's singular values
+    n, p, k = MAIN_N, STAMP * STAMP, LR_RANK
+    cg = torch.Generator().manual_seed(29)
+    a = (torch.randn(n, k, generator=cg) @ torch.randn(k, p, generator=cg)
+         + 0.5 * torch.randn(n, p, generator=cg)).to("cuda")
+    omega = make_test_matrix(p, k, device="cuda")
+    thresh = float(torch.linalg.svdvals(a)[k // 2])
+    got = randomized_svt_local(a, omega, thresh)
+    want = randomized_svt_local(a, omega, thresh, use_kernel=False)
+    torch.cuda.synchronize()
+    gap = _rel_fro(torch, got, want)
+    max_err = float((got - want).abs().max())
+    # the first call under the sync debug mode in a process can report
+    # one sync raised from torch's own Python code, a bare
+    # torch.linalg.qr's as well, and none on its next call: the second
+    # call is the one held
+    first = count_syncs(torch, lambda: randomized_svt_local(a, omega, thresh))
+    syncs = count_syncs(torch, lambda: randomized_svt_local(a, omega, thresh))
+    log(f"  randomized_svt_local ({n}, {p}) r={omega.shape[1]}: card route "
+        f"against plain route relative Frobenius gap {gap:.3e} (bound "
+        f"{SVT_REL}), max abs err {max_err:.3e}; host syncs in two calls "
+        f"{first} and {syncs}")
+    if not gap <= SVT_REL:
+        raise AssertionError(f"randomized SVT routes {gap} apart")
+    if syncs:
+        raise AssertionError(f"the card route of the randomized SVT syncs "
+                             f"at {syncs}")
+    return errs, {"sweeps": sweeps, "svt_rel_gap": gap,
+                  "svt_max_abs_err": max_err, "svt_syncs": len(syncs)}
+
+
+# ---------------------------------------------------------------- 12
+# kernel-name fragments -> the part of the low-rank iteration they belong to
+LR_PARTS = (("condat_elwise.primal", ("condat_primal",)),
+            ("jacobi", ("jacobi",)),
+            # cuSOLVER's Householder QR (geqrf) and the reduced Q (orgqr)
+            ("qr", ("geqr", "orgqr", "ormqr", "larf", "householder")),
+            ("fft", ("fft", "FFT")),
+            ("cublas_gemm", ("gemm", "Gemm", "GEMM", "gemv")))
+
+
+def lowrank_path_phase(torch):
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    cfg = SolverConfig(mode="lowrank", n_scales=SCALES, lam=LR_LAM,
+                       rank=LR_RANK)
+    torch.cuda.synchronize()
+    reset_launches()
+    sol, wall, syncs_per_chunk = run_counting_syncs(
+        torch, lambda progress: solve(
+            "deconvolve", data.Y, data.psfs, cfg=cfg, max_iter=LR_ITERS,
+            chunk=LR_CHUNK, cost_every="chunk", tol=0.0,
+            progress_fn=progress))
+    launches = read_launches()
+    it = sol.log.iters_run
+    chunks = -(-it // LR_CHUNK)
+    log(f"low-rank path: n={MAIN_N} rank={LR_RANK} iters_run={it} wall "
+        f"{wall:.2f} s, launches {launches}")
+    want = {"condat_elwise.primal": it, "condat_elwise.primal_xbar": it,
+            "jacobi.svd": it, "jacobi.eigh": it + chunks}
+    want.update({k: 0 for k in DECONV_KERNELS + SCDL_KERNELS
+                 if k != "condat_elwise.primal"})
+    if it != LR_ITERS or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"low-rank launches {launches}, expected "
+                             f"{want} over {LR_ITERS} iterations")
+    if syncs_per_chunk != 1:
+        raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
+                             f"expected 1")
+    evaluated = evaluated_costs(sol.log.costs, LR_CHUNK)
+    if not all(math.isfinite(c) for c in evaluated):
+        raise AssertionError(f"non-finite evaluated cost: {evaluated}")
+    # the primal-dual cost is not monotone: tests/test_imaging.py's bound
+    if not max(evaluated[1:]) <= 1.1 * evaluated[0]:
+        raise AssertionError(f"low-rank cost grew past 1.1 x its first "
+                             f"value: {evaluated}")
+    x = torch.as_tensor(sol.x, device="cuda")
+    mse_dec = float(torch.mean((x - data.X_true) ** 2))
+    mse_obs = float(torch.mean((data.Y - data.X_true) ** 2))
+    if not mse_dec < mse_obs:
+        raise AssertionError(f"deconvolved MSE {mse_dec:.3e} not below "
+                             f"observation MSE {mse_obs:.3e}")
+    chunk_ms = [t * 1e3 for t in sol.log.times[LR_CHUNK::LR_CHUNK]]
+    ms_per_iter = statistics.median(chunk_ms)
+    log(f"low-rank path: evaluated costs {[round(c, 6) for c in evaluated]}"
+        f"; MSE deconvolved {mse_dec:.3e} vs observed {mse_obs:.3e}; "
+        f"{ms_per_iter} ms/iteration (median over chunks after the first); "
+        f"host syncs per chunk {syncs_per_chunk}")
+    return {"n": MAIN_N, "rank": LR_RANK, "iters_run": it,
+            "launches": launches, "ms_per_iter": ms_per_iter,
+            "chunk_ms": chunk_ms, "syncs_per_chunk": syncs_per_chunk,
+            "wall_s": wall, "costs": evaluated, "mse_deconvolved": mse_dec,
+            "mse_observed": mse_obs}, sol.bundle, cfg
+
+
+def lowrank_profile_phase(torch, bundle, cfg):
+    """One more chunk of the low-rank iteration, continued from the
+    path's final state, under ``torch.profiler``."""
+    from repro_torch.imaging.deconvolve import make_light_step_fn
+    light = make_light_step_fn(cfg)
+    state = {"d": light(bundle.data, bundle.replicated, ())}
+
+    def body():
+        for _ in range(LR_CHUNK):
+            state["d"] = light(state["d"], bundle.replicated, ())
+
+    out = profile_window(torch, body, LR_CHUNK, LR_PARTS)
+    log(f"low-rank profile: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------- 13
+def lowrank_parity_phase(torch):
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    data = simulate(LR_PARITY_N, torch.Generator().manual_seed(5),
+                    stamp=STAMP, device="cpu")
+    cfg = SolverConfig(mode="lowrank", n_scales=SCALES, lam=LR_LAM,
+                       rank=LR_RANK)
+    runs = {dev: solve("deconvolve", data.Y, data.psfs, cfg=cfg, device=dev,
+                       max_iter=LR_PARITY_ITERS, chunk=LR_PARITY_CHUNK,
+                       cost_every=1, tol=0.0)
+            for dev in ("cuda", "cpu")}
+    gap, x_gap = cost_gap(runs, f"low-rank card vs CPU at n={LR_PARITY_N}")
+    return {"n": LR_PARITY_N, "max_rel_cost_gap": gap, "max_abs_x_gap": x_gap}
+
+
+# ---------------------------------------------------------------- 14
+def completion_data(torch, n, p, seed, device):
+    """A rank-4 truth from seeded Gaussian factors and a mask observing
+    60 % of it (tests/test_problem_api.py's recipe)."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(n, COMP_TRUE_RANK, generator=g) @ \
+        torch.randn(COMP_TRUE_RANK, p, generator=g)
+    M = (torch.rand(n, p, generator=g) < COMP_OBSERVED).float()
+    return A.to(device), M.to(device)
+
+
+def completion_fp64(torch, cfg, A, M, iters, omega=None):
+    """The completion's cost trajectory in fp64 on the CPU: the port's
+    own step and cost (``LowRankCompletionProblem.full_step``, the plain
+    factorizations) on fp64 copies of the data and of the test matrix
+    (``omega``, or the one the fp32 runs draw).  The value that the
+    card's and the CPU's fp32 routes both approximate."""
+    import numpy as np
+    from repro_torch.imaging.lowrank import (LowRankCompletionProblem,
+                                             resolve_omega)
+    Y, M = (A * M).double().cpu(), M.double().cpu()
+    omega = resolve_omega(omega, Y.shape[1], cfg.rank, cfg.oversample, "cpu")
+    rep, d = {"omega": omega.double()}, {"Y": Y, "M": M, "X": Y.clone()}
+    problem, costs = LowRankCompletionProblem(cfg), []
+    for _ in range(iters):
+        d, cost = problem.full_step(d, rep, ())
+        costs.append(float(cost["cost"]))
+    return np.asarray(costs)
+
+
+def completion_run(torch, cfg, A, M):
+    """One completion solve on the card: launches, one host sync per
+    chunk, finite costs; returns the solve, its chunk-end costs, ms per
+    iteration and relative recovery error."""
+    from repro_torch.core.problem import solve
+    from repro_torch.kernels.jacobi import kernel as jk
+    torch.cuda.synchronize()
+    reset_launches()
+    sol, wall, syncs_per_chunk = run_counting_syncs(
+        torch, lambda progress: solve(
+            "lowrank", A, M, cfg=cfg, max_iter=LR_ITERS, chunk=LR_CHUNK,
+            cost_every="chunk", tol=0.0, progress_fn=progress))
+    launches = read_launches()
+    it = sol.log.iters_run
+    chunks = -(-it // LR_CHUNK)
+    want = {"jacobi.svd": it, "jacobi.eigh": it + chunks}
+    want.update({k: 0 for k in DECONV_KERNELS + SCDL_KERNELS
+                 + ("condat_elwise.primal_xbar",)})
+    r = cfg.rank + cfg.oversample
+    if it != LR_ITERS or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"completion r={r} launches {launches}, "
+                             f"expected {want}")
+    if syncs_per_chunk != 1:
+        raise AssertionError(f"completion r={r}: {syncs_per_chunk} host "
+                             f"syncs per chunk, expected 1")
+    evaluated = evaluated_costs(sol.log.costs, LR_CHUNK)
+    if not all(math.isfinite(c) for c in evaluated):
+        raise AssertionError(f"completion r={r}: non-finite cost "
+                             f"{evaluated}")
+    x = torch.as_tensor(sol.x, device="cuda")
+    err = float(torch.linalg.norm(x - A) / torch.linalg.norm(A))
+    ms = statistics.median(t * 1e3 for t in
+                           sol.log.times[LR_CHUNK::LR_CHUNK])
+    # the last launches: the last iteration's SVD, the last cost's eigvalsh
+    sweeps = {"eigh": int(jk.eigh_fwd.sweeps), "svd": int(jk.svd_fwd.sweeps)}
+    log(f"completion r={r}: ({COMP_N}, {COMP_P}), iters_run={it}, wall "
+        f"{wall:.2f} s, launches {launches}; costs "
+        f"{[round(c, 3) for c in evaluated]}; relative error {err:.3e}; "
+        f"{ms} ms/iteration (median over chunks after the first); host "
+        f"syncs per chunk {syncs_per_chunk}; sweeps of the last calls "
+        f"{sweeps}")
+    return {"r": r, "iters_run": it, "launches": launches,
+            "ms_per_iter": ms, "syncs_per_chunk": syncs_per_chunk,
+            "wall_s": wall, "costs": evaluated, "rel_err": err,
+            "last_sweeps": sweeps}
+
+
+def completion_phase(torch):
+    """The completion workload at (10 000, 1681).  First with the config
+    of tests/test_problem_api.py:233 (r = 24), whose range finder is too
+    narrow at this size: the reference algebra's cost is least at
+    iteration 15 and then grows, the same on the CPU in fp64
+    (tools/lowrank_model.py completion), so that run is held to
+    launches, syncs and finite costs and its trajectory is reported.
+    Then with oversample 52 (r = 64, the kernels' largest side), where
+    the same algebra converges: the cost must fall and the recovery error
+    drop below the masked input's.  Last, the r = 24 config card against
+    CPU at (1024, 128), at PARITY_RTOL; and, since the range finder scales
+    each Gram direction by lambda^-1/2 and so magnifies rounding, each
+    route against the fp64 trajectory of the same algebra: the card
+    within twice the CPU's distance from it."""
+    import numpy as np
+
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.lowrank import CompletionConfig
+    cfg = CompletionConfig(rank=12, oversample=12, lam=0.2, step=0.9)
+    wide = CompletionConfig(rank=12, oversample=52, lam=0.2, step=0.9)
+    A, M = completion_data(torch, COMP_N, COMP_P, 31, "cuda")
+    err0 = float(torch.linalg.norm(M * A - A) / torch.linalg.norm(A))
+    log(f"completion: true rank {COMP_TRUE_RANK}, {COMP_OBSERVED:.0%} "
+        f"observed, relative error of the masked input {err0:.4f}")
+    out = {"n": COMP_N, "p": COMP_P, "rel_err_masked": err0,
+           "r24": completion_run(torch, cfg, A, M),
+           "r64": completion_run(torch, wide, A, M)}
+    wide_run = out["r64"]
+    if not wide_run["costs"][-1] < wide_run["costs"][0] or \
+            not wide_run["rel_err"] < err0:
+        raise AssertionError(f"completion r=64 did not converge: costs "
+                             f"{wide_run['costs']}, relative error "
+                             f"{wide_run['rel_err']} against {err0}")
+    out["ms_per_iter"] = out["r24"]["ms_per_iter"]
+    out["syncs_per_chunk"] = out["r24"]["syncs_per_chunk"]
+    Ap, Mp = completion_data(torch, COMP_PARITY_N, COMP_PARITY_P, 37, "cpu")
+    runs = {dev: solve("lowrank", Ap, Mp, cfg=cfg, device=dev,
+                       max_iter=LR_PARITY_ITERS, chunk=LR_PARITY_CHUNK,
+                       cost_every=1, tol=0.0)
+            for dev in ("cuda", "cpu")}
+    label = f"completion card vs CPU at ({COMP_PARITY_N}, {COMP_PARITY_P})"
+    gap, x_gap = cost_gap(runs, label)
+    exact = completion_fp64(torch, cfg, Ap, Mp, LR_PARITY_ITERS)
+    dist = {dev: float(np.max(np.abs(np.asarray(sol.log.costs) - exact)
+                              / np.abs(exact)))
+            for dev, sol in runs.items()}
+    log(f"{label}: largest relative distance of the cost trajectory from "
+        f"the fp64 one, card {dist['cuda']:.3e}, CPU {dist['cpu']:.3e} "
+        f"(bound {COMP_FP64_FACTOR} x the CPU's + {COMP_FP64_FLOOR})")
+    if not dist["cuda"] <= COMP_FP64_FACTOR * dist["cpu"] + COMP_FP64_FLOOR:
+        raise AssertionError(f"{label}: the card lies {dist['cuda']} from "
+                             f"the fp64 trajectory, the CPU {dist['cpu']}")
+    out["parity"] = {"n": COMP_PARITY_N, "p": COMP_PARITY_P,
+                     "max_rel_cost_gap": gap, "max_abs_x_gap": x_gap,
+                     "fp64_rel_dist_cuda": dist["cuda"],
+                     "fp64_rel_dist_cpu": dist["cpu"]}
+    return out
+
+
+# ---------------------------------------------------------------- 15
+def jacobi_bound(name, r):
+    """What the function needs, whatever the sweeps the kernel takes.
+    Bytes: the matrix read once and the factors written once (eigh: r^2
+    in, r^2 + r out; svd: r^2 in, 2 r^2 + r out).  Operations: a dense
+    factorization's count, 9 r^3 for a symmetric eigendecomposition with
+    vectors and 22 r^3 for an SVD with both sets of vectors (Golub and
+    Van Loan's counts).  Both lie far under the kernels' chain of sweeps
+    x (r - 1) dependent steps, which the phase prints beside them."""
+    words, flops = {"jacobi.eigh": (2 * r * r + r, 9 * r ** 3),
+                    "jacobi.svd": (3 * r * r + r, 22 * r ** 3)}[name]
+    return bound(words * 4, flops)
+
+
+def lowrank_timing_phase(torch):
+    from repro_torch.kernels.condat_elwise.ops import condat_primal
+    from repro_torch.kernels.jacobi import kernel as jk
+    from repro_torch.kernels.jacobi.ops import eigh, svd
+    g = torch.Generator(device="cuda").manual_seed(41)
+    out = {}
+    X, Ua, gr = (torch.randn((MAIN_N, STAMP, STAMP), generator=g,
+                             device="cuda") for _ in range(3))
+    tau = torch.tensor(0.31, device="cuda")
+    elems = X.numel()
+    # three planes read, two written
+    t_bound, by = bound(5 * elems * 4, 6 * elems)
+    out["condat_elwise.primal_xbar"] = {
+        "ms": time_ms(torch, lambda: condat_primal(X, Ua, gr, tau,
+                                                   with_xbar=True)),
+        "plain_ms": time_ms(torch, lambda: condat_primal(
+            X, Ua, gr, tau, with_xbar=True, use_kernel=False)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by}
+    del X, Ua, gr
+    by_r = {}
+    for r in (24, 40, 64):
+        # the path's matrices: the Gram of an (n, r) projection, and R^T
+        # of the QR of an (S * S, r) one
+        y = torch.randn((MAIN_N, r), generator=g, device="cuda")
+        G = y.T @ y
+        Rt = torch.linalg.qr(torch.randn((STAMP * STAMP, r), generator=g,
+                                         device="cuda")).R.T.contiguous()
+        eigh(G)
+        svd(Rt)
+        sw_e, sw_s = int(jk.eigh_fwd.sweeps), int(jk.svd_fwd.sweeps)
+        for name, fn, plain, lib, sw in (
+                ("jacobi.eigh", lambda: eigh(G),
+                 lambda: eigh(G, use_kernel=False),
+                 lambda: torch.linalg.eigh(G), sw_e),
+                ("jacobi.svd", lambda: svd(Rt),
+                 lambda: svd(Rt, use_kernel=False),
+                 lambda: torch.linalg.svd(Rt), sw_s)):
+            t_bound, by = jacobi_bound(name, r)
+            t = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain),
+                 "library_ms": time_ms(torch, lib), "bound_ms": t_bound,
+                 "bound_by": by, "r": r, "sweeps": sw,
+                 "dependent_steps": sw * (r + (r & 1) - 1)}
+            by_r.setdefault(name, {})[str(r)] = t
+            log(f"  {name} r={r}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f},"
+                f" torch.linalg {t['library_ms']:.4f}, both syncing to the "
+                f"host; bound {t_bound:.6f} by {by}; {sw} sweeps, "
+                f"{t['dependent_steps']} dependent steps)")
+    for name, rows in by_r.items():
+        out[name] = {**rows["24"], "by_r": rows}
+    t = out["condat_elwise.primal_xbar"]
+    log(f"  condat_elwise.primal_xbar: {t['ms']:.4f} ms (plain "
+        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -961,6 +1506,17 @@ KERNELS = {
                         "src/repro/kernels/dict_outer/kernel.py:99"),
     "dict_outer": ("src/repro_torch/csrc/dict_outer.cu",
                    "src/repro/kernels/dict_outer/kernel.py:49"),
+    "condat_elwise.primal_xbar": (
+        "src/repro_torch/csrc/condat_elwise.cu",
+        "src/repro/kernels/condat_elwise/kernel.py:65 with with_xbar=True "
+        "(_primal_xbar_kernel, :43)"),
+    "jacobi.eigh": ("src/repro_torch/csrc/jacobi.cu",
+                    "no TPU kernel: jnp.linalg.eigh at "
+                    "src/repro/imaging/lowrank.py:59 and eigvalsh at :107 "
+                    "(XLA)"),
+    "jacobi.svd": ("src/repro_torch/csrc/jacobi.cu",
+                   "no TPU kernel: jnp.linalg.svd at "
+                   "src/repro/imaging/lowrank.py:66 (XLA)"),
 }
 
 
@@ -998,9 +1554,25 @@ def main() -> int:
     report["scdl_parity"] = scdl_parity_phase(torch)
     log("== SCDL timings (CUDA events, median of 30)")
     times.update(scdl_timing_phase(torch))
+    log("== Jacobi kernels against torch.linalg")
+    jacobi_errs, report["jacobi"] = jacobi_phase(torch)
+    errs.update(jacobi_errs)
+    log("== low-rank path")
+    report["lowrank_path"], bundle, cfg = lowrank_path_phase(torch)
+    log("== where the time of one low-rank iteration goes (torch.profiler)")
+    report["lowrank_profile"] = lowrank_profile_phase(torch, bundle, cfg)
+    del bundle
+    log("== low-rank card against CPU")
+    report["lowrank_parity"] = lowrank_parity_phase(torch)
+    log("== low-rank completion")
+    report["completion"] = completion_phase(torch)
+    log("== low-rank timings (CUDA events, median of 30)")
+    times.update(lowrank_timing_phase(torch))
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
-                        for k in SCDL_KERNELS}}
+                        for k in SCDL_KERNELS},
+                     **{k: report["lowrank_path"]["launches"][k]
+                        for k in LOWRANK_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -1021,7 +1593,16 @@ def main() -> int:
     log(f"scdl main path: {report['scdl_main_path']['ms_per_iter']} "
         f"ms/iteration at K={SCDL_K} A={SCDL_A}, "
         f"{report['scdl_main_path']['syncs_per_chunk']} host syncs per "
-        f"chunk; whole run {report['seconds']:.1f} s after the device check")
+        f"chunk")
+    log(f"low-rank path: {report['lowrank_path']['ms_per_iter']} "
+        f"ms/iteration at n={MAIN_N} rank={LR_RANK}, completion "
+        f"{report['completion']['ms_per_iter']} ms/iteration at "
+        f"({COMP_N}, {COMP_P}); host syncs per chunk "
+        f"{report['lowrank_path']['syncs_per_chunk']} and "
+        f"{report['completion']['syncs_per_chunk']}")
+    report["command_s"] = time.perf_counter() - T_START
+    log(f"whole run {report['seconds']:.1f} s after the device check; "
+        f"command time {report['command_s']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

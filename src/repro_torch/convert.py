@@ -8,14 +8,23 @@ functions here swap the first two axes of exactly those leaves on the
 way in, and of every leaf the bundle records on axis 1
 (``Bundle.record_axes``) on the way out, so the numpy side is always in
 the JAX layout.  Every other leaf keeps its layout.  One pair of
-functions serves both workloads: their leaf names do not collide.
+functions serves every workload: their leaf names do not collide.
 
 Deconvolution (``repro.imaging.deconvolve.build_bundle``):
 
   Y, Xp, HX (n, S, S) float32; psf_fp (n, 2, P, P // 2 + 1) complex64;
-  W (n, J, 1, 1); Xd, CX (n, J, S, S); tau, sig () float32.
-  The port stores W, Xd, CX scale-major, (J, n, ...)
-  (``imaging/deconvolve.py``).
+  tau, sig () float32; then by mode:
+  sparse:  W (n, J, 1, 1); Xd, CX (n, J, S, S).  The port stores W, Xd,
+           CX scale-major, (J, n, ...) (``imaging/deconvolve.py``).
+  lowrank: Xd (n, S, S), record-major in both packages; replicated
+           omega (S * S, rank + 8) float32.  No leaf is swapped: a
+           bundle's ``Xd`` is scale-major only beside its ``CX``
+           (``deconvolve.scale_major``).
+
+Low-rank completion (``repro.imaging.lowrank``, ``"lowrank"``):
+
+  Y, M, X (n, p) float32; replicated omega (p, rank + oversample)
+  float32.  Every leaf keeps the JAX layout.
 
 SCDL (``repro.imaging.scdl.build_bundle``):
 
@@ -35,13 +44,14 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 
 from repro_torch.core.bundle import Bundle
-from repro_torch.imaging.deconvolve import SCALE_MAJOR
+from repro_torch.imaging.deconvolve import scale_major
 from repro_torch.imaging.scdl import PLANE_MAJOR
 
 
-# leaves the port keeps with records on axis 1; the names of the two
-# workloads do not collide, so one list serves both
-_SWAPPED = SCALE_MAJOR + PLANE_MAJOR
+def _swapped(data: Mapping[str, object]) -> Tuple[str, ...]:
+    """The leaves of ``data`` the port keeps with records on axis 1; the
+    names of the workloads do not collide, so one rule serves all."""
+    return tuple(k for k in scale_major(data) + PLANE_MAJOR if k in data)
 
 
 def _rep_from(v):
@@ -59,16 +69,17 @@ def _rep_to(v):
 def bundle_from_numpy(data: Mapping[str, np.ndarray],
                       replicated: Mapping[str, object], *,
                       device=None) -> Bundle:
-    """JAX-layout numpy state of either workload (nested ``Fh``/``Fl``
+    """JAX-layout numpy state of any workload (nested ``Fh``/``Fl``
     dicts included) -> the port's ``Bundle`` on ``device`` (``None`` =
     ``"cuda"``)."""
-    moved = {k: (np.swapaxes(np.asarray(v), 0, 1) if k in _SWAPPED
+    swapped = _swapped(data)
+    moved = {k: (np.swapaxes(np.asarray(v), 0, 1) if k in swapped
                  else np.asarray(v)) for k, v in data.items()}
     # swapaxes gives strided views; the kernels want contiguous leaves
     moved = {k: np.ascontiguousarray(v) for k, v in moved.items()}
     rep = {k: _rep_from(v) for k, v in replicated.items()}
     return Bundle.create(moved, replicated=rep, device=device,
-                         record_axes={k: 1 for k in _SWAPPED if k in moved})
+                         record_axes={k: 1 for k in swapped})
 
 
 def bundle_to_numpy(bundle: Bundle) -> Tuple[Dict[str, np.ndarray],

@@ -117,10 +117,11 @@ _REGISTRY: Dict[str, Type[Problem]] = {}
 
 _BUILTIN_MODULES: Dict[str, str] = {
     "deconvolve": "repro_torch.imaging.deconvolve",
+    "lowrank": "repro_torch.imaging.lowrank",
     "scdl": "repro_torch.imaging.scdl",
 }
-# workloads of the reference that later slices port
-_LATER_WORKLOADS: Dict[str, str] = {"lowrank": "A8"}
+# workloads of the reference that later slices port (none left)
+_LATER_WORKLOADS: Dict[str, str] = {}
 
 
 def register(name: str):
@@ -261,9 +262,10 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
           resume: Union[bool, int] = False, **run_opts) -> Solution:
     """The single entry point: configure, place, iterate.
 
-    ``problem`` is a registry key (``"deconvolve"``, ``"scdl"``), a
-    Problem class or an instance.  ``*inputs`` (numpy arrays or tensors) go to
-    ``problem.init_bundle``, which copies them onto ``device``
+    ``problem`` is a registry key (``"deconvolve"``, ``"scdl"``,
+    ``"lowrank"``), a Problem class or an instance.  ``*inputs`` (numpy
+    arrays or tensors) go to ``problem.init_bundle``, which copies them
+    onto ``device``
     (``None`` = ``"cuda"``; raises without a card).  Run control:
     ``options=RunOptions(...)`` replaces the problem's defaults;
     ``**run_opts`` (``max_iter=``, ``tol=``, ``chunk=``,

@@ -1,14 +1,16 @@
-"""Condat primal-dual splitting for space-variant deconvolution (Eq. 2),
-sparse mode.  Port of ``repro.imaging.condat``:
+"""Condat primal-dual splitting for space-variant deconvolution
+(Eq. 2/3).  Port of ``repro.imaging.condat``:
 
   sparse  : min_X  0.5||Y - H(X)||_F^2 + ||W o Phi(X)||_1   s.t. X >= 0
+  lowrank : min_X  0.5||Y - H(X)||_F^2 + lam ||X||_*        s.t. X >= 0
 
 The per-record pieces here are reused unchanged by
 ``imaging/deconvolve.py``.  Each iteration runs one forward and one
-adjoint spectral multiply (H(X) carried), one starlet forward (Phi(X)
-carried, so the over-relaxed dual input is 2 Phi(X_new) - Phi(X)) and
-one starlet adjoint, with the elementwise tails in the fused
-``kernels/condat_elwise`` passes.
+adjoint spectral multiply (H(X) carried).  In sparse mode it also runs
+one starlet forward (Phi(X) carried, so the over-relaxed dual input is
+2 Phi(X_new) - Phi(X)) and one starlet adjoint, with the elementwise
+tails in the fused ``kernels/condat_elwise`` passes; in low-rank mode
+(L = I) the primal pass also writes X_bar, and the dual update is an SVT.
 
 Step sizes are computed once on the host, exactly as the JAX module
 does (``float(spectral_norm)`` -> :func:`step_sizes`); the solvers then
@@ -16,7 +18,8 @@ hold them as 0-d fp32 device tensors, so no iteration syncs to the host.
 
 Random draws are a seam: the operator norms and the noise calibration
 take their draws as ``u0=``/``v0=`` (PSF power iteration), ``x0=``
-(starlet power iteration) and ``noise=`` (noise calibration).
+(starlet power iteration) and ``noise=`` (noise calibration); low-rank
+mode needs only ``u0``/``v0``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
 from repro_torch.imaging import starlet
 from repro_torch.kernels.common import resolve_device, to_device
@@ -34,7 +38,7 @@ from repro_torch.kernels.starlet2d import ops as starlet_batch
 
 @dataclass(frozen=True)
 class SolverConfig:
-    mode: str = "sparse"            # sparse (lowrank: ROADMAP A8)
+    mode: str = "sparse"            # sparse | lowrank
     n_scales: int = 4
     lam: float = 0.1                # low-rank threshold
     k_sigma: float = 3.0            # sparse threshold in noise sigmas
@@ -45,11 +49,13 @@ class SolverConfig:
     tol: float = 1e-4
 
 
-def require_sparse(cfg: SolverConfig) -> None:
-    if cfg.mode != "sparse":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet (ROADMAP A8, the "
-            f"low-rank slice); this slice runs mode='sparse'")
+MODES = ("sparse", "lowrank")
+
+
+def check_mode(cfg: SolverConfig) -> None:
+    if cfg.mode not in MODES:
+        raise ValueError(f"unknown mode {cfg.mode!r}; expected one of "
+                         f"{MODES}")
 
 
 # ---------------------------------------------------------------------
@@ -105,13 +111,17 @@ def sparse_reg_cost(CX, W):
 def step_sizes(Y, psfs, cfg: SolverConfig, sigma_noise: float,
                kf_pair=None, *, u0=None, v0=None, x0=None, noise=None):
     """Condat step sizes from operator norms: 1/tau - sig ||L||^2 >= b/2.
-    Host floats, as in the JAX module; returns (tau, sig, W)."""
-    require_sparse(cfg)
+    Host floats, as in the JAX module; returns (tau, sig, W).  Low-rank
+    mode has L = I: ||L|| = 1 and no weights (``W`` is ``None``)."""
+    check_mode(cfg)
     norm_H = psf_op.spectral_norm(psfs, kf_pair=kf_pair, u0=u0, v0=v0)
-    norm_L = starlet.spectral_norm(cfg.n_scales, tuple(Y.shape[-2:]),
-                                   x0=x0, device=Y.device)
-    W = weight_matrix(psfs, sigma_noise, cfg.n_scales, cfg.k_sigma,
-                      noise=noise)
+    if cfg.mode == "sparse":
+        norm_L = starlet.spectral_norm(cfg.n_scales, tuple(Y.shape[-2:]),
+                                       x0=x0, device=Y.device)
+        W = weight_matrix(psfs, sigma_noise, cfg.n_scales, cfg.k_sigma,
+                          noise=noise)
+    else:
+        norm_L, W = 1.0, None
     sig = cfg.sigma_dual or 0.5 / max(norm_L ** 2, 1e-12)
     tau = cfg.tau or 1.0 / (norm_H ** 2 / 2 + sig * norm_L ** 2 + 1e-12)
     return tau, sig, W
@@ -124,19 +134,25 @@ def step_sizes(Y, psfs, cfg: SolverConfig, sigma_noise: float,
 def solve(Y, psfs, cfg: SolverConfig, sigma_noise: float = 0.02,
           n_iter: Optional[int] = None, cost_every: int = 1, *,
           device=None, u0=None, v0=None, x0=None, noise=None):
-    """Run the sequential sparse solver; returns (X*, cost history).
+    """Run the sequential solver; returns (X*, cost history).
 
-    ``cost_every``: evaluate the objective only every k-th iteration;
-    skipped entries carry the last evaluated value forward (+inf before
-    the first).  The history is a (n_iter,) tensor on the device; the
-    loop itself never syncs to the host.
+    ``cost_every``: evaluate the objective (a weighted reduction of the
+    carried starlet stack in sparse mode, an SVD in low-rank mode) only
+    every k-th iteration; skipped entries carry the last evaluated value
+    forward (+inf before the first).  The history is a (n_iter,) tensor
+    on the device.  In sparse mode the loop never syncs to the host.
+    Low-rank mode is the exact reference: its SVT and its objective go
+    through ``torch.linalg.svd``, which on the card waits for the device
+    (once an iteration, twice on an objective's iteration); the chunked
+    ``solve("deconvolve", ...)`` is the path that does not.
     """
-    require_sparse(cfg)
+    check_mode(cfg)
     dev = resolve_device(device)
     Y = to_device(Y, dev)
     psfs = to_device(psfs, dev)
     n_iter = n_iter or cfg.max_iter
     cost_every = max(int(cost_every), 1)
+    sparse = cfg.mode == "sparse"
     kf_pair = psf_op.psf_fft_pair(psfs)
     tau, sig, W = step_sizes(Y, psfs, cfg, sigma_noise, kf_pair=kf_pair,
                              u0=u0, v0=v0, x0=x0, noise=noise)
@@ -144,19 +160,32 @@ def solve(Y, psfs, cfg: SolverConfig, sigma_noise: float = 0.02,
     sig = torch.tensor(sig, dtype=torch.float32, device=dev)
     X = psf_op.Ht_fp(Y, kf_pair)
     HX = psf_op.H_fp(X, kf_pair)
-    U = torch.zeros((cfg.n_scales,) + tuple(Y.shape), device=dev)
-    CX = starlet_batch.forward(X, cfg.n_scales)
+    if sparse:
+        U = torch.zeros((cfg.n_scales,) + tuple(Y.shape), device=dev)
+        CX = starlet_batch.forward(X, cfg.n_scales)
+    else:
+        U = torch.zeros_like(Y)
     cost = torch.tensor(float("inf"), device=dev)
     costs = []
     for i in range(n_iter):
-        U_adj = sparse_dual_adjoint(U, cfg.n_scales)
         grad = grad_from_HX(HX, Y, kf_pair)
-        X = primal_update(X, U_adj, grad, tau)
-        CX_new = starlet_batch.forward(X, cfg.n_scales)
-        U = sparse_dual_update(U, CX_new, CX, W, sig)
-        CX = CX_new
+        if sparse:
+            U_adj = sparse_dual_adjoint(U, cfg.n_scales)
+            X = primal_update(X, U_adj, grad, tau)
+            CX_new = starlet_batch.forward(X, cfg.n_scales)
+            U = sparse_dual_update(U, CX_new, CX, W, sig)
+            CX = CX_new
+        else:
+            X, X_bar = condat_primal(X, U, grad, tau, with_xbar=True)
+            V = U + sig * X_bar
+            flat = (V / sig).reshape(V.shape[0], -1)
+            U = V - sig * lr.svt(flat, cfg.lam / sig).reshape(V.shape)
         HX = psf_op.H_fp(X, kf_pair)
         if i % cost_every == 0:
-            cost = data_cost_from(HX, Y) + sparse_reg_cost(CX, W)
+            if sparse:
+                cost = data_cost_from(HX, Y) + sparse_reg_cost(CX, W)
+            else:
+                s = torch.linalg.svdvals(X.reshape(X.shape[0], -1))
+                cost = data_cost_from(HX, Y) + cfg.lam * torch.sum(s)
         costs.append(cost)
     return X, torch.stack(costs)

@@ -1,10 +1,13 @@
-"""Algorithm 1 — space-variant PSF deconvolution, sparse mode, on one
-device.  Port of ``repro.imaging.deconvolve``.
+"""Algorithm 1 — space-variant PSF deconvolution on one device, in
+sparse or low-rank mode.  Port of ``repro.imaging.deconvolve``.
 
   1. initialise X_p, X_d; extract H            -> Ht warm start
   2. place Y, PSF, X_p, X_d in the bundle      -> Bundle.create
   3. sparse: map PSF -> W^(k)                  -> weights in the bundle
   6-11. iterate: update + cost                 -> chunked IterativeDriver
+        (low rank: the randomized SVT of ``imaging/lowrank.py``, its
+        small factorizations in the Jacobi kernels, so a chunk still
+        holds one host sync)
   12. return X_p*                              -> finalize
 
 The per-record math comes from ``imaging/condat.py`` unchanged.  The
@@ -17,7 +20,10 @@ iteration, which XLA makes free.  In PyTorch that swap is a copy of the
 269 MB dual stack per leaf per iteration (or a non-contiguous view the
 kernels refuse), so this bundle stores those three leaves scale-major,
 (J, n, ...), with records on axis 1 (``Bundle.record_axes``).
-``repro_torch.convert`` swaps them when state crosses packages.
+``repro_torch.convert`` swaps them when state crosses packages.  In
+low-rank mode the dual ``Xd`` has no scale axis: it is (n, S, S),
+record-major, in both packages, beside the test matrix ``omega`` in
+``replicated``.
 """
 from __future__ import annotations
 
@@ -29,33 +35,44 @@ import torch
 from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle
 from repro_torch.core.problem import Problem, register
+from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
-from repro_torch.imaging.condat import (SolverConfig, data_cost_from,
-                                        grad_from_HX, primal_update,
-                                        require_sparse, sparse_dual_adjoint,
+from repro_torch.imaging.condat import (SolverConfig, check_mode,
+                                        data_cost_from, grad_from_HX,
+                                        primal_update, sparse_dual_adjoint,
                                         sparse_dual_update, sparse_reg_cost,
                                         step_sizes)
 from repro_torch.kernels.common import resolve_device, to_device
+from repro_torch.kernels.condat_elwise.ops import condat_primal
 from repro_torch.kernels.starlet2d import ops as starlet_batch
 
-# per-scale leaves, stored scale-major (records on axis 1)
+# per-scale leaves of sparse mode, stored scale-major (records on axis 1)
 SCALE_MAJOR = ("W", "Xd", "CX")
+
+
+def scale_major(data) -> tuple:
+    """The leaves of ``data`` stored scale-major: the per-scale leaves of
+    a sparse bundle, which carries ``CX`` beside its dual.  A low-rank
+    bundle has neither ``CX`` nor ``W``, and its ``Xd`` is record-major."""
+    return SCALE_MAJOR if "CX" in data else ()
 
 
 def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
                  sigma_noise: float = 0.02, u0=None, v0=None, x0=None,
-                 noise=None) -> Tuple[Bundle, dict]:
+                 noise=None, omega=None) -> Tuple[Bundle, dict]:
     """Steps 1-5: place the inputs and derived state in the bundle.
 
     Beyond the paper's arrays the bundle carries ``psf_fp`` (the
-    (kf, conj kf) spectrum pair), ``HX`` (H of the current primal) and
-    ``CX`` (Phi of the current primal), so each iteration runs one
-    convolution each way and one starlet forward.  The step sizes are
-    host floats (returned) and 0-d fp32 device tensors (``replicated``).
-    ``u0``/``v0``/``x0``/``noise`` are the random draws of the operator
-    norms and the noise calibration (see ``condat.step_sizes``).
+    (kf, conj kf) spectrum pair), ``HX`` (H of the current primal) and,
+    in sparse mode, ``CX`` (Phi of the current primal), so each
+    iteration runs one convolution each way and one starlet forward.
+    The step sizes are host floats (returned) and 0-d fp32 device
+    tensors (``replicated``).  ``u0``/``v0``/``x0``/``noise`` are the
+    random draws of the operator norms and the noise calibration (see
+    ``condat.step_sizes``); ``omega`` is low-rank mode's (S*S, rank +
+    ``lowrank.OVERSAMPLE``) test matrix (see ``imaging/lowrank.py``).
     """
-    require_sparse(cfg)
+    check_mode(cfg)
     dev = resolve_device(device)
     Y = to_device(Y, dev)
     psfs = to_device(psfs, dev)
@@ -64,15 +81,20 @@ def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
                              u0=u0, v0=v0, x0=x0, noise=noise)
     X0 = psf_op.Ht_fp(Y, kf_pair)
     data = {"Y": Y, "psf_fp": kf_pair, "Xp": X0,
-            "HX": psf_op.H_fp(X0, kf_pair),
-            "W": W,                                           # (J, n, 1, 1)
-            "Xd": torch.zeros((cfg.n_scales,) + tuple(Y.shape),
-                              dtype=torch.float32, device=dev),
-            "CX": starlet_batch.forward(X0, cfg.n_scales)}    # (J, n, S, S)
+            "HX": psf_op.H_fp(X0, kf_pair)}
     replicated = {"tau": torch.tensor(tau, dtype=torch.float32),
                   "sig": torch.tensor(sig, dtype=torch.float32)}
+    if cfg.mode == "sparse":
+        data["W"] = W                                         # (J, n, 1, 1)
+        data["Xd"] = torch.zeros((cfg.n_scales,) + tuple(Y.shape),
+                                 dtype=torch.float32, device=dev)
+        data["CX"] = starlet_batch.forward(X0, cfg.n_scales)  # (J, n, S, S)
+    else:
+        data["Xd"] = torch.zeros_like(Y)                      # (n, S, S)
+        replicated["omega"] = lr.resolve_omega(
+            omega, Y.shape[-1] * Y.shape[-2], cfg.rank, lr.OVERSAMPLE, dev)
     bundle = Bundle.create(data, replicated=replicated, device=dev,
-                           record_axes={k: 1 for k in SCALE_MAJOR})
+                           record_axes={k: 1 for k in scale_major(data)})
     return bundle, {"tau": tau, "sig": sig}
 
 
@@ -89,59 +111,96 @@ def _sparse_update(d, rep, cfg: SolverConfig):
                 HX=psf_op.H_fp(X_new, d["psf_fp"])), (W, CX_new)
 
 
+def _lowrank_update(d, rep, axes, cfg: SolverConfig):
+    """Steps 7-8 (low rank): the primal pass with X_bar, then the dual
+    update U + sig X_bar - sig SVT((U + sig X_bar) / sig, lam / sig)
+    through the randomized SVT."""
+    U, sig = d["Xd"], rep["sig"]
+    grad = grad_from_HX(d["HX"], d["Y"], d["psf_fp"])
+    X_new, X_bar = condat_primal(d["Xp"], U, grad, rep["tau"],
+                                 with_xbar=True)
+    V = U + sig * X_bar
+    flat = (V / sig).reshape(V.shape[0], -1)
+    svt_flat = lr.randomized_svt_local(flat, rep["omega"], cfg.lam / sig,
+                                       axes=axes)
+    U_new = V - sig * svt_flat.reshape(V.shape)
+    return dict(d, Xp=X_new, Xd=U_new, HX=psf_op.H_fp(X_new, d["psf_fp"]))
+
+
+def _nuclear(d, rep, axes):
+    """The range finder's nuclear norm of the primal."""
+    return lr.nuclear_norm_rf(d["Xp"].reshape(d["Xp"].shape[0], -1),
+                              rep["omega"], axes)
+
+
 def make_step_fn(cfg: SolverConfig):
     """One iteration with its objective (steps 7-9)."""
-    require_sparse(cfg)
+    check_mode(cfg)
 
     def step(d, rep, axes):
-        d_new, (W, CX_new) = _sparse_update(d, rep, cfg)
-        cost = data_cost_from(d_new["HX"], d["Y"]) + \
-            sparse_reg_cost(CX_new, W)
-        return d_new, {"cost": cost}
+        if cfg.mode == "sparse":
+            d_new, (W, CX_new) = _sparse_update(d, rep, cfg)
+            cost = data_cost_from(d_new["HX"], d["Y"]) + \
+                sparse_reg_cost(CX_new, W)
+            return d_new, {"cost": cost}
+        d_new = _lowrank_update(d, rep, axes, cfg)
+        return d_new, {"cost": data_cost_from(d_new["HX"], d["Y"])
+                       + cfg.lam * _nuclear(d_new, rep, axes)}
 
     return step
 
 
 def make_light_step_fn(cfg: SolverConfig):
-    """The same iteration without the objective (``cost_every`` > 1)."""
-    require_sparse(cfg)
+    """The same iteration without the objective (``cost_every`` > 1):
+    no reduction in sparse mode, no Gram eigendecomposition in low-rank
+    mode."""
+    check_mode(cfg)
 
     def step(d, rep, axes):
-        return _sparse_update(d, rep, cfg)[0]
+        if cfg.mode == "sparse":
+            return _sparse_update(d, rep, cfg)[0]
+        return _lowrank_update(d, rep, axes, cfg)
 
     return step
 
 
 def make_cost_fn(cfg: SolverConfig):
     """The objective of the post-iteration state (``cost_every="chunk"``):
-    the carried CX is Phi(Xp), so it is a weighted reduction with no
-    transform at all."""
-    require_sparse(cfg)
+    in sparse mode the carried CX is Phi(Xp), so it is a weighted
+    reduction with no transform at all; in low-rank mode the data term
+    off the carried HX plus the range finder's nuclear norm."""
+    check_mode(cfg)
 
     def cost(d, rep, axes):
-        return {"cost": data_cost_from(d["HX"], d["Y"])
-                + sparse_reg_cost(d["CX"], d["W"])}
+        data_part = data_cost_from(d["HX"], d["Y"])
+        if cfg.mode == "sparse":
+            return {"cost": data_part + sparse_reg_cost(d["CX"], d["W"])}
+        return {"cost": data_part + cfg.lam * _nuclear(d, rep, axes)}
 
     return cost
 
 
 @register("deconvolve")
 class DeconvolutionProblem(Problem):
-    """Algorithm 1 in sparse mode (``mode="lowrank"`` is ROADMAP A8).
+    """Algorithm 1, declared once.
 
+    ``cfg.mode`` selects the regulariser: ``"sparse"`` (starlet + noise-
+    adaptive weights) or ``"lowrank"`` (the randomized SVT).
     ``u0``/``v0``/``x0``/``noise`` inject the random draws of the
-    operator norms and the noise calibration (the JAX package draws them
-    from fixed ``PRNGKey``s that torch cannot reproduce); left ``None``,
-    they come from seeded CPU ``torch.Generator``s.
+    operator norms and the noise calibration, ``omega`` low-rank mode's
+    test matrix (the JAX package draws them from fixed ``PRNGKey``s that
+    torch cannot reproduce); left ``None``, they come from seeded CPU
+    ``torch.Generator``s.
     """
 
     def __init__(self, cfg: Optional[SolverConfig] = None,
                  sigma_noise: float = 0.02, *, u0=None, v0=None, x0=None,
-                 noise=None):
+                 noise=None, omega=None):
         self.cfg = cfg if cfg is not None else SolverConfig()
-        require_sparse(self.cfg)
+        check_mode(self.cfg)
         self.sigma_noise = sigma_noise
         self.u0, self.v0, self.x0, self.noise = u0, v0, x0, noise
+        self.omega = omega
         self._step = make_step_fn(self.cfg)
         self._light = make_light_step_fn(self.cfg)
         self._cost = make_cost_fn(self.cfg)
@@ -150,7 +209,8 @@ class DeconvolutionProblem(Problem):
         Y, psfs = inputs
         bundle, _ = build_bundle(Y, psfs, self.cfg, device=device,
                                  sigma_noise=self.sigma_noise, u0=self.u0,
-                                 v0=self.v0, x0=self.x0, noise=self.noise)
+                                 v0=self.v0, x0=self.x0, noise=self.noise,
+                                 omega=self.omega)
         return bundle
 
     def full_step(self, d, rep, axes):
@@ -166,8 +226,11 @@ class DeconvolutionProblem(Problem):
         return bundle.data["Xp"].detach().cpu().numpy(), {}
 
     def batch_axes(self):
-        # (Y, psfs) are both stamp-major; the noise level and the
-        # injected draws are constructor state shared by declaration
-        return BatchAxes(record_axes=(0, 0),
+        # (Y, psfs) are both stamp-major; the test matrix depends only on
+        # the config (or the injected draw) and is shared across a
+        # bucket; the noise level and the injected draws are constructor
+        # state shared by declaration
+        shared = ("omega",) if self.cfg.mode == "lowrank" else ()
+        return BatchAxes(record_axes=(0, 0), shared_in_batch=shared,
                          instance_invariant=("sigma_noise", "u0", "v0",
-                                             "x0", "noise"))
+                                             "x0", "noise", "omega"))

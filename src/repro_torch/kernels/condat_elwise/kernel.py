@@ -34,6 +34,8 @@ def condat_primal_fwd(X, U_adj, grad, tau, *, with_xbar: bool = False):
         common.DTYPE_CODES[X.dtype], int(with_xbar), common.stream_ptr(X))
     common.check(err, what)
     condat_primal_fwd.launches += 1
+    # the two-output form (the low-rank path's) is also counted apart
+    condat_primal_fwd.launches_xbar += int(with_xbar)
     return (xn, xb) if with_xbar else xn
 
 
@@ -62,4 +64,5 @@ def condat_dual_fwd(U, C_new, C_old, W, sig):
 
 
 condat_primal_fwd.launches = 0
+condat_primal_fwd.launches_xbar = 0
 condat_dual_fwd.launches = 0

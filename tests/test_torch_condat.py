@@ -10,7 +10,8 @@ fixed PRNG keys; the tests hand those draws to the port.
 Tolerances: fp32 rtol/atol 2e-5 and bf16 2e-2 for the elementwise passes
 (``tests/test_kernels.py``); the step sizes, which come out of power
 iterations, rtol 1e-5; a whole solve's cost history rtol 1e-4 and its
-iterate rtol 1e-4 / atol 1e-6 (``tests/test_solve_many.py``).
+iterate rtol 1e-4 / atol 1e-6 (``tests/test_solve_many.py``), in sparse
+and in low-rank mode.
 """
 import jax
 import jax.numpy as jnp
@@ -210,8 +211,42 @@ def test_sequential_solve_matches_jax(small, cost_every):
                                atol=1e-6)
 
 
-def test_lowrank_mode_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="A8"):
+def test_lowrank_step_sizes_match_jax(small):
+    """Low-rank mode: L = I, so ||L|| = 1, no weights and no starlet
+    norm or noise calibration; only the PSF power iteration draws."""
+    Y, P, dr = small
+    cfg = condat.SolverConfig(mode="lowrank", lam=0.05, rank=8)
+    tau, sig, W = condat.step_sizes(_t(Y), _t(P), cfg, 0.02, u0=dr["u0"],
+                                    v0=dr["v0"])
+    jtau, jsig, jW = jcondat.step_sizes(
+        jnp.asarray(Y), jnp.asarray(P),
+        jcondat.SolverConfig(mode="lowrank", lam=0.05, rank=8), 0.02)
+    assert W is None and jW is None
+    assert sig == jsig == 0.5
+    assert tau == pytest.approx(jtau, rel=1e-5)
+
+
+@pytest.mark.parametrize("cost_every", [1, 4])
+def test_sequential_lowrank_solve_matches_jax(small, cost_every):
+    """The exact low-rank reference (SVT by a full SVD, the objective by
+    the singular values) against JAX's, n = 8 stamps of 21 x 21."""
+    Y, P, dr = small
+    cfg = condat.SolverConfig(mode="lowrank", lam=0.05, rank=8, max_iter=12)
+    X, costs = condat.solve(Y, P, cfg, cost_every=cost_every, device="cpu",
+                            u0=dr["u0"], v0=dr["v0"])
+    jX, jcosts = jcondat.solve(
+        jnp.asarray(Y), jnp.asarray(P),
+        jcondat.SolverConfig(mode="lowrank", lam=0.05, rank=8, max_iter=12),
+        cost_every=cost_every)
+    jc = np.asarray(jcosts)
+    assert costs.shape == jc.shape == (12,)
+    np.testing.assert_allclose(costs.numpy(), jc, rtol=1e-4)
+    np.testing.assert_allclose(X.numpy(), np.asarray(jX), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_unknown_mode_raises():
+    with pytest.raises(ValueError, match="unknown mode 'dense'"):
         condat.solve(np.zeros((2, 9, 9), np.float32),
                      np.zeros((2, 9, 9), np.float32),
-                     condat.SolverConfig(mode="lowrank"), device="cpu")
+                     condat.SolverConfig(mode="dense"), device="cpu")

@@ -222,11 +222,12 @@ def test_later_slice_options_raise(case, kwargs, item):
         solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
 
 
-@pytest.mark.parametrize("name,item", [("lowrank", "A8")])
-def test_later_workloads_raise(case, name, item):
-    Y, P, _ = case
-    with pytest.raises(NotImplementedError, match=item):
-        solve(name, Y, P, device="cpu")
+def test_lowrank_workload_is_ported():
+    """``"lowrank"`` (ROADMAP A8) resolves to the port's own Problem."""
+    from repro_torch.core.problem import available, get
+    from repro_torch.imaging.lowrank import LowRankCompletionProblem
+    assert get("lowrank") is LowRankCompletionProblem
+    assert set(available()) == {"deconvolve", "lowrank", "scdl"}
 
 
 def test_scdl_workload_is_ported():
@@ -237,6 +238,14 @@ def test_scdl_workload_is_ported():
     assert "scdl" in available()
 
 
-def test_lowrank_mode_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        deconvolve.DeconvolutionProblem(SolverConfig(mode="lowrank"))
+def test_lowrank_mode_builds(case):
+    """``mode="lowrank"`` builds its bundle: a record-major dual, no
+    starlet leaves, the test matrix beside the step sizes."""
+    Y, P, draws = case
+    problem = deconvolve.DeconvolutionProblem(
+        SolverConfig(mode="lowrank", rank=8), u0=draws["u0"], v0=draws["v0"])
+    b = problem.init_bundle((Y, P), torch.device("cpu"))
+    assert sorted(b.data) == ["HX", "Xd", "Xp", "Y", "psf_fp"]
+    assert tuple(b.data["Xd"].shape) == (N, S, S) and b.record_axis("Xd") == 0
+    assert tuple(b.replicated["omega"].shape) == (S * S, 16)
+    assert problem.batch_axes().shared_in_batch == ("omega",)

@@ -11,6 +11,7 @@ prints its final line):
    TF32 off for matmul and cuDNN;
 2. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, all started together) and load the library;
+   the Jacobi kernels must have no stack frame and no spills;
 3. kernels against their plain PyTorch versions on the card, at the
    main path's shapes and at small, ragged and bf16 shapes; the fused
    starlet transforms (Phi, Phi^T) also pass the dot-product test and
@@ -43,11 +44,12 @@ prints its final line):
    cost trajectories compared;
 10. times of the SCDL kernels, as in phase 6;
 11. the Jacobi kernels (``jacobi.eigh``, ``jacobi.svd``) against
-    ``torch.linalg`` at r = 24, 25, 40, 64 on random symmetric matrices,
-    Grams of rank r and r / 2 and a cluster of equal eigenvalues
-    (reconstruction, orthogonality, values, the count above the low-rank
-    solver's 1e-6 clip, the sweeps each took); two calls bit-identical,
-    and a batch of four matrices bit-identical to their own calls;
+    ``torch.linalg`` at r = 3, 24, 25, 32, 33, 40, 64 on random symmetric
+    matrices, Grams of rank r and r / 2 and a cluster of equal
+    eigenvalues (reconstruction, orthogonality, values, the count above
+    the low-rank solver's 1e-6 clip, the sweeps each took); two calls
+    bit-identical, and batches of four (r = 24) and eight (r = 32)
+    bit-identical to their own calls;
     the whole randomized SVT at (10 000, 1681), r = 24, card route
     against plain route, and its host syncs (none);
 12. the low-rank main path: ``solve("deconvolve", ...,
@@ -62,10 +64,12 @@ prints its final line):
     from 60 % of its entries, 60 iterations, one host sync per chunk:
     with the range finder of tests/test_problem_api.py (r = 24), too
     narrow at this size for the algebra to converge (reported), then at
-    r = 64, where the cost falls and the matrix is recovered; then card
-    against CPU at (1024, 128);
+    r = 64, where the cost falls and the matrix is recovered; each then
+    one more chunk under torch.profiler; then card against CPU at
+    (1024, 128);
 15. times of the two-output primal pass and of the Jacobi kernels at
-    r = 24, 40 and 64 beside ``torch.linalg``.
+    r = 24, 32, 40 and 64 beside ``torch.linalg``, with their sweeps and
+    microseconds per dependent step.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  The whole report also goes to
@@ -170,17 +174,32 @@ def build_phase():
     build_log = Path(str(path) + ".log")
     if build_log.exists():
         # every source's seconds; the compiler's registers and spills for
-        # each kernel, of the starlet register kernels only at the sides
-        # the phases below run (one is built per side up to 41)
-        shown = True
+        # each kernel, of the starlet register kernels and the Jacobi
+        # kernels only at the sides the phases below run (one is built per
+        # side up to 41, and per even side up to 64)
+        shown, props, frames = True, "", {}
         for line in build_log.read_text().splitlines():
             if "entry function" in line:
                 side = re.search(r"_regsI\w*?Li(\d+)E", line)
-                shown = side is None or int(side[1]) in (13, 32, STAMP)
+                jacobi = re.search(r"(eigh|svd)_kernelILi(\d+)E", line)
+                shown = (side is None or int(side[1]) in (13, 32, STAMP)) \
+                    and (jacobi is None or int(jacobi[2]) in JACOBI_SIDES)
+            if "Function properties for" in line:
+                props = line.split()[-1]
+            if "stack frame" in line and re.search(
+                    r"(eigh|svd)_kernelILi\d+E", props):
+                frames[props] = line.strip()
             if line.startswith("==") or shown and any(
                     k in line for k in ("entry function", "registers",
                                         "spill")):
                 log(f"  {line.strip()}")
+        # the Jacobi kernels keep each thread's rotations, blocks and rows
+        # in registers only if nothing goes to a stack frame
+        bad = {k: v for k, v in frames.items() if v != NO_FRAME}
+        log(f"  jacobi kernels: {len(frames)} built, {len(bad)} with a "
+            f"stack frame or spills")
+        if len(frames) != JACOBI_KERNELS or bad:
+            raise AssertionError(f"jacobi kernels: {bad or frames}")
     return secs
 
 
@@ -997,23 +1016,37 @@ COMP_PARITY_N, COMP_PARITY_P = 1024, 128
 # rule for the port against the JAX package), plus a floor for a CPU
 # route that happens to land near the fp64 value
 COMP_FP64_FACTOR, COMP_FP64_FLOOR = 2.0, 1e-6
-# 25: an odd side, where each step leaves one index out
-JACOBI_RS = (24, 25, 40, 64)
+# 24: the paths' r; 3, 25 and 33: odd sides, where each step leaves one
+# index out (3: a team of one warp); 32 and 33: 16 and 17 pairs a step,
+# either side of half a warp of rotations; 40 and 64: the completion's
+# wider range finders
+JACOBI_RS = (3, 24, 25, 32, 33, 40, 64)
+# the even sides those run (an odd r runs the instance of r + 1), and the
+# instances the build must hold without a stack frame: eigh with and
+# without vectors and the SVD at each of the 32 even sides up to 64
+JACOBI_SIDES = {r + (r & 1) for r in JACOBI_RS}
+JACOBI_KERNELS = 3 * 32
+NO_FRAME = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+# a batch of eight at r = 32 beside the batch of four at r = 24
+JACOBI_BATCH_R = 32
 FP32_EPS = 2.0 ** -23
 # Jacobi against torch.linalg, in fp32 units of r eps: reconstruction
 # ||A - V diag(w) V^T||_F / ||A||_F, eigenvalue or singular value error /
 # max |value| and orthogonality ||V^T V - I||_F within 4 r eps (the
 # kernels rotate in fp64, so their outputs carry the final fp32 rounding:
-# about 0.1 r eps in a model of the kernel, tools/lowrank_model.py
-# jacobi, where the same rotations in fp32 leave V up to 10 r eps from
-# orthogonal); U checked on the columns whose singular value exceeds 1e-3
-# of the largest (a zero singular value has no direction)
+# at most 0.25 r eps in a model of the kernels, tools/lowrank_model.py
+# jacobi, held to these bounds by tests/test_torch_jacobi_model.py; the
+# same rotations in fp32 left V up to 10 r eps from orthogonal); U checked
+# on the columns whose singular value exceeds 1e-3 of the largest (a zero
+# singular value has no direction)
 JACOBI_REC, JACOBI_VALUES, JACOBI_ORTH = 4, 4, 4
 # the whole randomized SVT, card route against the plain route: the range
 # finder scales each Gram direction by lambda^-1/2, which magnifies fp32
 # rounding; two exact fp32 factorizations give routes about 4e-5 apart in
 # relative Frobenius norm at this shape
 SVT_REL = 2e-4
+# phase 15: the paths' r = 24, r = 32, and the completion's 40 and 64
+JACOBI_TIMED_RS = (24, 32, 40, 64)
 
 
 def jacobi_cases(torch, r, g):
@@ -1076,12 +1109,14 @@ def jacobi_phase(torch):
     g = torch.Generator(device="cuda").manual_seed(23)
     errs = {"jacobi.eigh": 0.0, "jacobi.svd": 0.0}
     sweeps = {}
-    main_cases = []
+    main_cases, batch_cases = [], []
     for r in JACOBI_RS:
         tol_r = r * FP32_EPS
         for name, A, rank in jacobi_cases(torch, r, g):
             if r == 24:
                 main_cases.append(A)
+            if r == JACOBI_BATCH_R:
+                batch_cases.append(A)
             what = f"r={r} {name}"
             w, V = eigh(A)
             w_only = eigh(A, compute_v=False)
@@ -1139,18 +1174,22 @@ def jacobi_phase(torch):
                             again[1], (U, sv, Vh)))):
                     raise AssertionError(f"jacobi {what}: two calls differ")
                 log(f"  jacobi {what}: two calls bit-identical")
-    # a batch, one block a matrix: each matrix's result bit for bit
-    batch = torch.stack(main_cases)
-    (w_b, V_b), (U_b, s_b, Vh_b) = eigh(batch), svd(batch)
-    for i, A in enumerate(main_cases):
-        if not (all(torch.equal(a, b[i]) for a, b in zip(eigh(A),
-                                                         (w_b, V_b)))
-                and all(torch.equal(a, b[i]) for a, b in zip(
-                    svd(A), (U_b, s_b, Vh_b)))):
-            raise AssertionError(f"jacobi: batch entry {i} differs from "
-                                 f"its own call")
-    log(f"  jacobi batch {tuple(batch.shape)}: every entry bit-identical "
-        f"to its own call")
+    # batches, one block a matrix: each matrix's result bit for bit as in
+    # its own call; four at r = 24, eight at r = 32 (the four cases and
+    # four more of the same kinds)
+    batch_cases += [A for _, A, _ in jacobi_cases(torch, JACOBI_BATCH_R, g)]
+    for cases in (main_cases, batch_cases):
+        batch = torch.stack(cases)
+        (w_b, V_b), (U_b, s_b, Vh_b) = eigh(batch), svd(batch)
+        for i, A in enumerate(cases):
+            if not (all(torch.equal(a, b[i]) for a, b in zip(eigh(A),
+                                                             (w_b, V_b)))
+                    and all(torch.equal(a, b[i]) for a, b in zip(
+                        svd(A), (U_b, s_b, Vh_b)))):
+                raise AssertionError(f"jacobi: batch {tuple(batch.shape)} "
+                                     f"entry {i} differs from its own call")
+        log(f"  jacobi batch {tuple(batch.shape)}: every entry bit-identical "
+            f"to its own call")
     # the whole SVT at the main path's shape: a rank-16 signal and noise,
     # threshold inside the signal's singular values
     n, p, k = MAIN_N, STAMP * STAMP, LR_RANK
@@ -1314,9 +1353,10 @@ def completion_fp64(torch, cfg, A, M, iters, omega=None):
 
 def completion_run(torch, cfg, A, M):
     """One completion solve on the card: launches, one host sync per
-    chunk, finite costs; returns the solve, its chunk-end costs, ms per
-    iteration and relative recovery error."""
+    chunk, finite costs; returns its chunk-end costs, ms per iteration,
+    relative recovery error, and the profile of one more chunk."""
     from repro_torch.core.problem import solve
+    from repro_torch.imaging.lowrank import LowRankCompletionProblem
     from repro_torch.kernels.jacobi import kernel as jk
     torch.cuda.synchronize()
     reset_launches()
@@ -1353,10 +1393,21 @@ def completion_run(torch, cfg, A, M):
         f"{ms} ms/iteration (median over chunks after the first); host "
         f"syncs per chunk {syncs_per_chunk}; sweeps of the last calls "
         f"{sweeps}")
+    # one more chunk of the iteration, continued from the solve's final
+    # state, under torch.profiler
+    problem, state = LowRankCompletionProblem(cfg), {"d": sol.bundle.data}
+
+    def body():
+        for _ in range(LR_CHUNK):
+            state["d"] = problem.light_step(state["d"],
+                                            sol.bundle.replicated, ())
+
+    profile = profile_window(torch, body, LR_CHUNK, LR_PARTS)
+    log(f"completion r={r} profile: {json.dumps(profile)}")
     return {"r": r, "iters_run": it, "launches": launches,
             "ms_per_iter": ms, "syncs_per_chunk": syncs_per_chunk,
             "wall_s": wall, "costs": evaluated, "rel_err": err,
-            "last_sweeps": sweeps}
+            "last_sweeps": sweeps, "profile": profile}
 
 
 def completion_phase(torch):
@@ -1452,7 +1503,7 @@ def lowrank_timing_phase(torch):
         "library_ms": None, "bound_ms": t_bound, "bound_by": by}
     del X, Ua, gr
     by_r = {}
-    for r in (24, 40, 64):
+    for r in JACOBI_TIMED_RS:
         # the path's matrices: the Gram of an (n, r) projection, and R^T
         # of the QR of an (S * S, r) one
         y = torch.randn((MAIN_N, r), generator=g, device="cuda")
@@ -1474,11 +1525,13 @@ def lowrank_timing_phase(torch):
                  "library_ms": time_ms(torch, lib), "bound_ms": t_bound,
                  "bound_by": by, "r": r, "sweeps": sw,
                  "dependent_steps": sw * (r + (r & 1) - 1)}
+            t["us_per_step"] = 1e3 * t["ms"] / t["dependent_steps"]
             by_r.setdefault(name, {})[str(r)] = t
             log(f"  {name} r={r}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f},"
                 f" torch.linalg {t['library_ms']:.4f}, both syncing to the "
                 f"host; bound {t_bound:.6f} by {by}; {sw} sweeps, "
-                f"{t['dependent_steps']} dependent steps)")
+                f"{t['dependent_steps']} dependent steps, "
+                f"{t['us_per_step']:.3f} us a step)")
     for name, rows in by_r.items():
         out[name] = {**rows["24"], "by_r": rows}
     t = out["condat_elwise.primal_xbar"]

@@ -5,8 +5,9 @@ on the card what the JAX package's low-rank path leaves to XLA,
 ``jnp.linalg.eigh`` / ``eigvalsh`` of the range finder's (r, r) Gram and
 the SVD of its (r, p) projection (``repro/imaging/lowrank.py``), because
 ``torch.linalg``'s versions wait for the device on the host.  One block
-per matrix, the matrix in shared memory, r <= ``MAX_R``; fp32 in and
-out, the rotations in fp64; the sweeps stop on the device.  Each launch leaves its sweep counts (an int32
+per matrix, the matrix in shared memory, one barrier a step,
+r <= ``MAX_R``; fp32 in and out, the rotations in fp64; the sweeps stop
+on the device.  Each launch leaves its sweep counts (an int32
 device tensor, one per matrix) in ``<wrapper>.sweeps``, which only
 checks read.
 """
@@ -16,8 +17,8 @@ import torch
 
 from repro_torch.kernels import common
 
-# the largest side of the kernels (kMaxR in csrc/jacobi.cu): a block of
-# one warp per rotation holds at most 32 rotations
+# the largest side of the kernels (kMaxR in csrc/jacobi.cuh): every warp
+# computes all r / 2 rotations of a step, one a lane
 MAX_R = 64
 
 

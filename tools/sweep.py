@@ -4,6 +4,7 @@
     python3 tools/sweep.py starlet                         # its default sweep
     python3 tools/sweep.py starlet 'lean:kForwardBlocks=4' ...
     python3 tools/sweep.py dict_outer 'wide:kWarpN=64' ...
+    python3 tools/sweep.py jacobi                          # its default sweep
 
 A variant is ``name:const=value,...``: each ``const`` is a ``constexpr``
 at namespace scope in one of the kernel's sources under
@@ -39,6 +40,15 @@ the pair on bf16 copies of the same inputs (one TF32 product where fp32
 takes three) and with P = 288, M = 80 (rows of a multiple of 16 bytes);
 then runs ``chip_smoke.py``'s phase 9 (the SCDL solve at K = 2048,
 A = 128 on the card against the CPU) and reports its NRMSE gap.
+
+``jacobi`` (``csrc/jacobi*``: kEighMaxWarps, kSvdLanes, kMaxSweeps): runs
+``chip_smoke.py``'s phase 11 (the kernels against ``torch.linalg`` at
+every side it checks, batches, the randomized SVT) and times
+``jacobi.eigh`` (also without vectors, the eigvalsh form) and
+``jacobi.svd`` as phase 15 (r = 24, 32, 40, 64), with microseconds per
+dependent step.  The default sweep sets the source beside eigh's team
+uncapped (one thread per 2 x 2 block at every side) and beside the SVD's
+with eight lanes a pair.
 """
 from __future__ import annotations
 
@@ -161,6 +171,33 @@ except AssertionError as err:
 print("SWEEP " + json.dumps(out), flush=True)
 """
 
+JACOBI = r"""
+from repro_torch.kernels.jacobi import kernel as jk
+from repro_torch.kernels.jacobi.ops import eigh, svd
+out["ptxas"] = [l for l in regs if re.search(r"<(24|32|40|64),", l)]
+try:
+    c.jacobi_phase(torch)
+    out["phase_11"] = "passed"
+except AssertionError as err:
+    out["phase_11"] = str(err)
+g = torch.Generator(device="cuda").manual_seed(41)
+for r in c.JACOBI_TIMED_RS:
+    y = torch.randn((c.MAIN_N, r), generator=g, device="cuda")
+    G = y.T @ y
+    Rt = torch.linalg.qr(torch.randn((c.STAMP * c.STAMP, r), generator=g,
+                                     device="cuda")).R.T.contiguous()
+    for name, fn, wrapper in (
+            ("eigh", lambda: eigh(G), jk.eigh_fwd),
+            ("eigvalsh", lambda: eigh(G, compute_v=False), jk.eigh_fwd),
+            ("svd", lambda: svd(Rt), jk.svd_fwd)):
+        fn()
+        steps = int(wrapper.sweeps) * (r + (r & 1) - 1)
+        ms = c.time_ms(torch, fn)
+        out[f"{{name}}_ms_{{r}}"] = ms
+        out[f"{{name}}_us_per_step_{{r}}"] = 1e3 * ms / steps
+print("SWEEP " + json.dumps(out), flush=True)
+"""
+
 # kernel -> the prefix of its CUDA sources under csrc/, its Python
 # constants (name -> file under src/repro_torch), default variants and
 # child body
@@ -172,6 +209,9 @@ KERNELS = {
                    ("as-is:", "fold-every-step:kFold=1",
                     "fold-every-4-steps:kFold=4", "64-row-stages:kBK=64"),
                    DICT_OUTER),
+    "jacobi": ("jacobi", {},
+               ("as-is:", "wide:kEighMaxWarps=17", "narrow:kSvdLanes=8"),
+               JACOBI),
 }
 
 

@@ -69,10 +69,37 @@ prints its final line):
     (1024, 128);
 15. times of the two-output primal pass and of the Jacobi kernels at
     r = 24, 32, 40 and 64 beside ``torch.linalg``, with their sweeps and
-    microseconds per dependent step.
+    microseconds per dependent step;
+16. checkpoints on the main path: phase 4's solve (tol 0, 60
+    iterations) with ``checkpoint_every=24`` into ``build/``, one host
+    sync per chunk on this thread with checkpoints written, then
+    ``resume=True`` from step 48: the evaluated cost and the final
+    iterate bit-identical to the uninterrupted run; the checkpoint's
+    bytes, this thread's time to queue the spill, the writer's seconds
+    per checkpoint, ms per iteration with and without checkpoints;
+17. ``solve_many("deconvolve", ...)``: phase 4's stamps split in order
+    into eight instances (one bucket, capacity 1350), phase 4's options:
+    one bucket, one host sync per chunk, one Phi, Phi^T, primal and dual
+    launch an iteration for the whole bucket, each instance's costs
+    against its own single solve on the card (rtol 1e-4, equal
+    ``iters_run``); ms per iteration beside phase 4's and the single
+    solves'; one more chunk under torch.profiler.  Then 64 instances of
+    120-180 stamps as one bucket against the same run one after another
+    (the host-bound regime), and the bucket of eight in low rank (one
+    ``jacobi.eigh`` and one ``jacobi.svd`` an iteration);
+18. buckets of four completions at r = 64 (2400-2600 rows, one shared
+    Omega; one Jacobi launch per kernel an iteration) and of four SCDL
+    instances at K = 10 000 (``dict_outer_pair`` once per instance an
+    iteration), each instance against its single solve (rtol 1e-4).
 
-Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``.  The whole report also goes to
+Phases 3 and 6 also hold the Condat passes with a step size per
+instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
+bf16; each instance of a batch bit-identical to its own call) and time
+them at count 8 on phase 17's bucket.
+
+Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (the
+per-instance Condat passes as their own entries, launches from phase
+17), and last ``{"ok": true, "device": {...}}``.  The whole report also goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or of the JAX
 package.
 """
@@ -139,8 +166,14 @@ def cascade_tol(dtype_name, smoothings):
     return {k: v * smoothings for k, v in TOL["float32"].items()}
 
 
+LOG_FILE = []          # the open copy of the log under chiprun_out/
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    for f in LOG_FILE:
+        f.write(msg + "\n")
+        f.flush()
 
 
 # ----------------------------------------------------------------- 1
@@ -334,6 +367,9 @@ SCDL_KERNELS = ("admm_elwise", "dict_outer_pair", "dict_outer")
 
 
 LOWRANK_KERNELS = ("condat_elwise.primal_xbar", "jacobi.eigh", "jacobi.svd")
+# the Condat passes with a step size per instance, on phase 17's bucket
+BATCHED_KERNELS = ("condat_elwise.primal_batched",
+                   "condat_elwise.dual_batched")
 
 
 def counters():
@@ -361,6 +397,10 @@ def counters():
            "jacobi.svd": svd_fwd}
     out = {name: (fn, "launches") for name, fn in fns.items()}
     out["condat_elwise.primal_xbar"] = (condat_primal_fwd, "launches_xbar")
+    # a step size per instance (a bucket of solve_many), counted apart too
+    out["condat_elwise.primal_batched"] = (condat_primal_fwd,
+                                           "launches_batched")
+    out["condat_elwise.dual_batched"] = (condat_dual_fwd, "launches_batched")
     return out
 
 
@@ -1540,6 +1580,478 @@ def lowrank_timing_phase(torch):
     return out
 
 
+# ------------------------------------------------------ 3 and 6, per instance
+# a bucket of solve_many: phase 4's 10 000 stamps split in order into
+# eight instances (capacity 1350, 7.4 % of the rows padding)
+BUCKET_SIZES = (1150, 1200, 1250, 1300, 1350, 1250, 1200, 1300)
+BUCKET_CAP = max(BUCKET_SIZES)
+# many small instances: 64 of 120-180 stamps, the host-bound regime
+SMALL_COUNT, SMALL_RANGE = 64, (120, 181)
+# phase 18: the completion at r = 64 and SCDL, four instances each
+COMP_BUCKET_ROWS = (2400, 2500, 2600, 2500)
+SCDL_BUCKET_K, SCDL_BUCKET_N = 10_000, 4
+# each instance of a bucket against its own single solve on the card
+BUCKET_RTOL = 1e-4
+
+
+def batched_condat_phase(torch):
+    """The per-instance Condat passes (a tau and a sig per instance)
+    against their plain versions: count 1 and 8, at the bucket's layout
+    (8 x 1350 stamps of 41 x 41, J = 4) and a ragged one (37 stamps of
+    21 x 21 an instance), fp32 and bf16; each instance of a batch of
+    eight bit-identical to its own call with one step size."""
+    from repro_torch.kernels.condat_elwise.ops import (condat_dual,
+                                                       condat_primal)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {"condat_elwise.primal_batched": 0.0,
+            "condat_elwise.dual_batched": 0.0}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    for B, n, S, dtype in ((8, BUCKET_CAP, STAMP, f32),
+                           (1, BUCKET_CAP, STAMP, f32),
+                           (8, 37, 21, f32), (8, 37, 21, bf16),
+                           (8, 130, STAMP, bf16), (1, 37, 21, bf16)):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        tau = torch.linspace(0.2, 0.5, B, device="cuda")
+        sig = torch.linspace(0.3, 0.6, B, device="cuda")
+        X, Ua, gr = (randn((B, n, S, S), dtype) for _ in range(3))
+        xn, xb = condat_primal(X, Ua, gr, tau, with_xbar=True)
+        rn, rb = condat_primal(X, Ua, gr, tau, with_xbar=True,
+                               use_kernel=False)
+        got = condat_primal(X, Ua, gr, tau)
+        torch.cuda.synchronize()
+        label = f"count={B} ({B}, {n}, {S}, {S}) {name}"
+        e = max(compare(f"primal {label}", got, rn, tol),
+                compare(f"primal+xbar X_new {label}", xn, rn, tol),
+                compare(f"primal+xbar X_bar {label}", xb, rb, tol))
+        same = all(torch.equal(got[b], condat_primal(X[b], Ua[b], gr[b],
+                                                     tau[b]))
+                   and torch.equal(xb[b], condat_primal(
+                       X[b], Ua[b], gr[b], tau[b], with_xbar=True)[1])
+                   for b in range(B))
+        del X, Ua, gr, xn, xb, rn, rb, got
+        U, Cn, Co = (randn((SCALES, B, n, S, S), dtype) for _ in range(3))
+        W = torch.rand((SCALES, B, n, 1, 1), generator=g,
+                       device="cuda").to(dtype)
+        got = condat_dual(U, Cn, Co, W, sig)
+        want = condat_dual(U, Cn, Co, W, sig, use_kernel=False)
+        torch.cuda.synchronize()
+        ed = compare(f"dual count={B} ({SCALES}, {B}, {n}, {S}, {S}) {name}",
+                     got, want, tol)
+        same = same and all(
+            torch.equal(got[:, b], condat_dual(
+                *(x[:, b].contiguous() for x in (U, Cn, Co, W)), sig[b]))
+            for b in range(B))
+        if not same:
+            raise AssertionError(f"per-instance Condat {label}: an instance "
+                                 f"differs from its own call")
+        if B > 1:
+            log(f"  count={B} ({n}, {S}, {S}) {name}: every instance "
+                f"bit-identical to its own call")
+        if (B, n, S, dtype) == (8, BUCKET_CAP, STAMP, f32):
+            errs["condat_elwise.primal_batched"] = e
+            errs["condat_elwise.dual_batched"] = ed
+        del U, Cn, Co, W, got, want
+    return errs
+
+
+def batched_timing_phase(torch):
+    """The per-instance passes at count 8 on phase 17's bucket, beside
+    the same stamps as one instance (count 1)."""
+    from repro_torch.kernels.condat_elwise.ops import (condat_dual,
+                                                       condat_primal)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    B, n = len(BUCKET_SIZES), BUCKET_CAP
+    X, Ua, gr = (torch.randn((B, n, STAMP, STAMP), generator=g,
+                             device="cuda") for _ in range(3))
+    taus = {8: torch.linspace(0.2, 0.5, B, device="cuda"),
+            1: torch.tensor(0.31, device="cuda")}
+    elems = X.numel()
+    out = {}
+    t_bound, by = bound(4 * elems * 4 + B * 4, 5 * elems)
+    t = {c: time_ms(torch, lambda c=c: condat_primal(X, Ua, gr, taus[c]))
+         for c in (8, 1)}
+    out["condat_elwise.primal_batched"] = {
+        "ms": t[8], "count1_ms": t[1],
+        "plain_ms": time_ms(torch, lambda: condat_primal(
+            X, Ua, gr, taus[8], use_kernel=False)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+        "shape": [B, n, STAMP, STAMP]}
+    del X, Ua, gr
+    shape = (SCALES, B, n, STAMP, STAMP)
+    U, Cn, Co = (torch.randn(shape, generator=g, device="cuda")
+                 for _ in range(3))
+    W = torch.rand(shape[:3] + (1, 1), generator=g, device="cuda")
+    sigs = {8: torch.linspace(0.3, 0.6, B, device="cuda"),
+            1: torch.tensor(0.47, device="cuda")}
+    m = U.numel()
+    t_bound, by = bound(4 * m * 4 + W.numel() * 4 + B * 4, 6 * m)
+    t = {c: time_ms(torch, lambda c=c: condat_dual(U, Cn, Co, W, sigs[c]))
+         for c in (8, 1)}
+    out["condat_elwise.dual_batched"] = {
+        "ms": t[8], "count1_ms": t[1],
+        "plain_ms": time_ms(torch, lambda: condat_dual(
+            U, Cn, Co, W, sigs[8], use_kernel=False)),
+        "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+        "shape": list(shape)}
+    for name, r in out.items():
+        log(f"  {name} {tuple(r['shape'])}: count 8 {r['ms']:.4f} ms, "
+            f"count 1 {r['count1_ms']:.4f} (plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------- 16
+CKPT_EVERY, CKPT_RESUME_AT = 24, 48
+
+
+def checkpoint_phase(torch):
+    """Phase 4's solve (tol 0: all 60 iterations) with checkpoints every
+    24 iterations into a scratch directory under build/, then a resume
+    from step 48: iterations 48-59 must give the uninterrupted run's
+    evaluated cost and final iterate bit for bit, and the checkpointed
+    run one host sync per chunk on this thread."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    cfg = SolverConfig(mode="sparse", n_scales=SCALES)
+    kw = dict(cfg=cfg, max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
+              cost_every="chunk", tol=0.0)
+    ckdir = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        full = solve("deconvolve", data.Y, data.psfs, **kw)
+        part, wall, syncs = run_counting_syncs(
+            torch, lambda progress: solve(
+                "deconvolve", data.Y, data.psfs, checkpoint_dir=ckdir,
+                checkpoint_every=CKPT_EVERY, progress_fn=progress, **kw))
+        ck = part.checkpointer
+        steps = sorted(int(p.name.split("_")[1]) for p in ckdir.iterdir())
+        nbytes = sum(f.stat().st_size for f in
+                     (ckdir / f"step_{CKPT_RESUME_AT:08d}").iterdir())
+        rest = solve("deconvolve", data.Y, data.psfs, checkpoint_dir=ckdir,
+                     resume=True, **kw)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if steps != list(range(CKPT_EVERY, MAIN_ITERS + 1, CKPT_EVERY)):
+        raise AssertionError(f"checkpoints at {steps}")
+    if syncs != 1:
+        raise AssertionError(f"checkpointed run: {syncs} host syncs per "
+                             f"chunk, expected 1")
+    if part.log.costs != full.log.costs:
+        raise AssertionError("checkpoints changed the trajectory")
+    tail = full.log.costs[CKPT_RESUME_AT:]
+    want = [float("inf")] * (MAIN_CHUNK - 1) + tail[MAIN_CHUNK - 1:]
+    if rest.log.costs != want or not np.array_equal(rest.x, full.x):
+        raise AssertionError(
+            f"resume from {CKPT_RESUME_AT}: costs {rest.log.costs[-1]!r} "
+            f"against {tail[-1]!r}, iterates equal "
+            f"{np.array_equal(rest.x, full.x)}")
+
+    def ms(sol):
+        return statistics.median(t * 1e3 for t in
+                                 sol.log.times[MAIN_CHUNK::MAIN_CHUNK])
+
+    out = {"checkpoint_steps": steps, "bytes": nbytes,
+           "syncs_per_chunk": syncs, "ms_per_iter": ms(full),
+           "ms_per_iter_checkpointed": ms(part), "wall_s": wall,
+           "spill_s": ck.spill_seconds, "write_s": ck.write_seconds,
+           "resumed_last_cost": rest.log.costs[-1]}
+    log(f"checkpoints: steps {steps}, {nbytes / 1e9:.3f} GB each; this "
+        f"thread's spill {[round(s * 1e3, 3) for s in ck.spill_seconds]} "
+        f"ms, the writer's {[round(s, 3) for s in ck.write_seconds]} s a "
+        f"checkpoint; {out['ms_per_iter_checkpointed']} ms/iteration with "
+        f"checkpoints, {out['ms_per_iter']} without; host syncs per chunk "
+        f"{syncs}; resume from {CKPT_RESUME_AT}: cost and iterate "
+        f"bit-identical to the uninterrupted run")
+    return out
+
+
+# ---------------------------------------------------------------- 17
+def bucket_ms(sols, chunk):
+    """A bucket's ms per iteration: the median over its chunks after the
+    first of the chunk's wall time (every live instance logs it)."""
+    log_ = max((s.log for s in sols), key=lambda lg: len(lg.times))
+    return statistics.median(t * 1e3 for t in log_.times[chunk::chunk])
+
+
+def single_ms(sol, chunk):
+    return statistics.median(t * 1e3 for t in sol.log.times[chunk::chunk])
+
+
+def hold_instances(label, sols, singles, rtol=BUCKET_RTOL):
+    """Each instance of a bucket against its own single solve: equal
+    ``iters_run``, finite entries alike, cost trajectories within rtol;
+    returns the largest relative gap."""
+    import numpy as np
+    gap, where = 0.0, None
+    for j, (sol, ref) in enumerate(zip(sols, singles)):
+        if sol.log.iters_run != ref.log.iters_run:
+            raise AssertionError(f"{label} instance {j}: iters_run "
+                                 f"{sol.log.iters_run} != "
+                                 f"{ref.log.iters_run}")
+        a, b = np.asarray(sol.log.costs), np.asarray(ref.log.costs)
+        fin = np.isfinite(b)
+        if a.shape != b.shape or not np.array_equal(np.isfinite(a), fin):
+            raise AssertionError(f"{label} instance {j}: cost entries "
+                                 f"differ")
+        rel = np.abs(a[fin] - b[fin]) / np.abs(b[fin])
+        if rel.size and float(rel.max()) > gap:
+            k = int(np.argmax(rel))
+            gap = float(rel[k])
+            where = (j, int(np.flatnonzero(fin)[k]), float(a[fin][k]),
+                     float(b[fin][k]))
+    if rtol is not None and not gap <= rtol:
+        raise AssertionError(f"{label}: an instance lies {gap} from its "
+                             f"single solve (rtol {rtol}); (instance, "
+                             f"iteration, bucket, single) {where}")
+    return gap
+
+
+def profile_bucket(torch, problem, insts, chunk, parts):
+    """One chunk of a bucket's cost-free iteration under torch.profiler,
+    on the bucket's state as ``solve_many`` stacks it."""
+    from repro_torch.core import batching
+    from repro_torch.core.problem import stack_bucket
+    [bucket] = batching.plan_buckets(insts, problem.batch_axes())
+    state, shared, _ = stack_bucket(problem, bucket, insts, "cuda")
+    box = {"d": state["d"], "rep": {**shared, **state["r"]}}
+    del state
+
+    def one():
+        if problem.replicated_in_carry:
+            box["d"], aux = problem.light_step(box["d"], box["rep"], ())
+            box["rep"] = problem.refresh_replicated(box["rep"], aux)
+        else:
+            box["d"] = problem.light_step(box["d"], box["rep"], ())
+
+    one()
+
+    def body():
+        for _ in range(chunk):
+            one()
+
+    return profile_window(torch, body, chunk, parts)
+
+
+def run_bucket(torch, label, key, insts, cfg, chunk, rtol=BUCKET_RTOL,
+               **kw):
+    """``solve_many`` on the card under the launch counters and the sync
+    count; then each instance alone (``solve``)."""
+    from repro_torch.core.problem import solve, solve_many
+    torch.cuda.synchronize()
+    reset_launches()
+    sols, wall, syncs = run_counting_syncs(
+        torch, lambda progress: solve_many(key, insts, cfg=cfg, chunk=chunk,
+                                           progress_fn=progress, **kw))
+    launches = read_launches()
+    if syncs != 1:
+        raise AssertionError(f"{label}: {syncs} host syncs per chunk, "
+                             f"expected 1")
+    t0 = time.perf_counter()
+    singles = [solve(key, *inst, cfg=cfg, chunk=chunk, **kw)
+               for inst in insts]
+    torch.cuda.synchronize()
+    singles_wall = time.perf_counter() - t0
+    gap = hold_instances(label, sols, singles, rtol)
+    out = {"instances": len(insts),
+           "shapes": [list(inst[0].shape) for inst in insts],
+           "iters": max(s.log.iters_run for s in sols),
+           "iters_run": [s.log.iters_run for s in sols],
+           "launches": launches, "syncs_per_chunk": syncs,
+           "wall_s": wall, "singles_wall_s": singles_wall,
+           "ms_per_iter": bucket_ms(sols, chunk),
+           "singles_ms_per_iter": [single_ms(s, chunk) for s in singles],
+           "max_rel_cost_gap_to_single": gap}
+    out["singles_ms_per_iter_sum"] = sum(out["singles_ms_per_iter"])
+    log(f"{label}: {len(insts)} instances, iters_run {out['iters_run']}, "
+        f"launches {launches}; {out['ms_per_iter']} ms/iteration for the "
+        f"bucket against {out['singles_ms_per_iter_sum']:.4f} summed over "
+        f"the single solves; wall {wall:.2f} s against {singles_wall:.2f} "
+        f"s; host syncs per chunk {syncs}; largest relative cost gap to "
+        f"the single solves {gap:.3e} (rtol {rtol})")
+    return out, sols, singles
+
+
+def bucket_phase(torch, main_ms):
+    """Phase 4's stamps as a bucket of eight instances, sparse and low
+    rank; 64 small instances as one bucket."""
+    import numpy as np
+
+    from repro_torch.core import batching
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.deconvolve import DeconvolutionProblem
+    from repro_torch.imaging.psf import simulate
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    edges = np.cumsum((0,) + BUCKET_SIZES)
+    insts = [(data.Y[a:b], data.psfs[a:b])
+             for a, b in zip(edges[:-1], edges[1:])]
+    cfg = SolverConfig(mode="sparse", n_scales=SCALES)
+    problem = DeconvolutionProblem(cfg)
+    plan = batching.plan_buckets(insts, problem.batch_axes())
+    log(f"bucket plan: {[(b.capacity, len(b.indices), round(b.waste, 4)) for b in plan]} "
+        f"(capacity, instances, padding share)")
+    if len(plan) != 1 or plan[0].capacity != BUCKET_CAP:
+        raise AssertionError(f"expected one bucket of capacity "
+                             f"{BUCKET_CAP}: {plan}")
+    # the setup's transforms, per instance as solve_many builds it (the
+    # power iteration's norm is memoized per stamp shape since phase 4;
+    # each instance calibrates its noise and takes its first Phi)
+    problem.init_bundle(insts[0], torch.device("cuda"))    # warm caches
+    reset_launches()
+    for inst in insts:
+        problem.init_bundle(inst, torch.device("cuda"))
+    setup = read_launches()
+    sparse, sols, _ = run_bucket(
+        torch, "bucket of eight, sparse", "deconvolve", insts, cfg,
+        MAIN_CHUNK, max_iter=MAIN_ITERS, cost_every="chunk", tol=1e-5)
+    it, lc = sparse["iters"], sparse["launches"]
+    want = {"condat_elwise.primal": it, "condat_elwise.dual": it,
+            "condat_elwise.primal_batched": it,
+            "condat_elwise.dual_batched": it,
+            "starlet2d.forward": it + setup["starlet2d.forward"],
+            "starlet2d.adjoint": it + setup["starlet2d.adjoint"],
+            "starlet2d.smooth": 0}
+    if any(lc[k] != v for k, v in want.items()):
+        raise AssertionError(f"bucket launches {lc}, expected {want}: one "
+                             f"Phi, Phi^T, primal and dual a bucket "
+                             f"iteration")
+    for sol, (Y, _) in zip(sols, insts):
+        if sol.x.shape != tuple(Y.shape) or not np.isfinite(sol.x).all():
+            raise AssertionError("a bucket's iterate is not finite or "
+                                 "not unpadded")
+    sparse["plan"] = {"capacity": plan[0].capacity,
+                      "waste": plan[0].waste}
+    sparse["setup_launches"] = {k: v for k, v in setup.items() if v}
+    sparse["main_path_ms_per_iter"] = main_ms
+    sparse["profile"] = profile_bucket(torch, problem, insts, MAIN_CHUNK,
+                                       PARTS)
+    log(f"bucket of eight: {sparse['ms_per_iter']} ms/iteration against "
+        f"phase 4's {main_ms} (the same stamps as one instance) and "
+        f"{sparse['singles_ms_per_iter_sum']:.4f} over the eight single "
+        f"solves; profile {json.dumps(sparse['profile'])}")
+
+    rng = np.random.default_rng(64)
+    sizes = rng.integers(*SMALL_RANGE, size=SMALL_COUNT)
+    edges = np.cumsum(np.concatenate([[0], sizes]))
+    if edges[-1] > MAIN_N:
+        raise AssertionError(f"{edges[-1]} stamps for the small instances")
+    small = [(data.Y[a:b], data.psfs[a:b])
+             for a, b in zip(edges[:-1], edges[1:])]
+    splan = batching.plan_buckets(small, problem.batch_axes())
+    if len(splan) != 1:
+        raise AssertionError(f"64 small instances in {len(splan)} buckets")
+    many, _, _ = run_bucket(
+        torch, f"bucket of {SMALL_COUNT} small instances", "deconvolve",
+        small, cfg, MAIN_CHUNK, max_iter=MAIN_ITERS, cost_every="chunk",
+        tol=0.0)
+    many["plan"] = {"capacity": splan[0].capacity, "waste": splan[0].waste,
+                    "stamps": int(edges[-1])}
+    many["profile"] = profile_bucket(torch, problem, small, MAIN_CHUNK,
+                                     PARTS)
+    many["single_profile"] = profile_bucket(torch, problem, small[:1],
+                                            MAIN_CHUNK, PARTS)
+    log(f"{SMALL_COUNT} small instances ({int(edges[-1])} stamps, "
+        f"capacity {splan[0].capacity}): bucket idle "
+        f"{many['profile']['idle_share']:.3f}, one instance alone idle "
+        f"{many['single_profile']['idle_share']:.3f}")
+
+    lr_cfg = SolverConfig(mode="lowrank", n_scales=SCALES, lam=LR_LAM,
+                          rank=LR_RANK)
+    lowrank, _, _ = run_bucket(
+        torch, "bucket of eight, low rank", "deconvolve", insts, lr_cfg,
+        LR_CHUNK, max_iter=LR_ITERS, cost_every="chunk", tol=0.0)
+    it, lc = lowrank["iters"], lowrank["launches"]
+    want = {"jacobi.svd": it, "jacobi.eigh": it + -(-it // LR_CHUNK),
+            "condat_elwise.primal_xbar": it,
+            "condat_elwise.primal_batched": it, "condat_elwise.dual": 0,
+            "starlet2d.forward": 0, "starlet2d.adjoint": 0}
+    if any(lc[k] != v for k, v in want.items()):
+        raise AssertionError(f"low-rank bucket launches {lc}, expected "
+                             f"{want}")
+    lowrank["profile"] = profile_bucket(
+        torch, DeconvolutionProblem(lr_cfg), insts, LR_CHUNK, LR_PARTS)
+    log(f"bucket of eight, low rank: profile "
+        f"{json.dumps(lowrank['profile'])}")
+    return {"sparse": sparse, "small": many, "lowrank": lowrank}
+
+
+# ---------------------------------------------------------------- 18
+def bucket_completion_scdl_phase(torch):
+    """Four completions at r = 64 sharing Omega, and four SCDL instances
+    at K = 10 000, each as one bucket against its single solves."""
+    from repro_torch.data.synthetic import coupled_patches
+    from repro_torch.imaging.lowrank import CompletionConfig
+    from repro_torch.imaging.scdl import SCDLConfig
+    wide = CompletionConfig(rank=12, oversample=52, lam=0.2, step=0.9)
+    insts = [completion_data(torch, n, COMP_P, 51 + j, "cuda")
+             for j, n in enumerate(COMP_BUCKET_ROWS)]
+    comp, sols, singles = run_bucket(
+        torch, "completion bucket r=64", "lowrank", insts, wide, LR_CHUNK,
+        rtol=None, max_iter=LR_ITERS, cost_every="chunk", tol=0.0)
+    # the range finder scales each Gram direction by lambda^-1/2, so two
+    # fp32 routes through different cuBLAS products part; each route's
+    # distance from the fp64 trajectory of the same algebra (phase 14)
+    import numpy as np
+    dist = []
+    for (A, M), sol, ref in zip(insts, sols, singles):
+        exact = completion_fp64(torch, wide, A, M, LR_ITERS)
+        at = [i for i in range(LR_ITERS) if (i + 1) % LR_CHUNK == 0]
+        d = [float(np.max(np.abs(np.asarray(r.log.costs)[at] - exact[at])
+                          / np.abs(exact[at]))) for r in (sol, ref)]
+        dist.append(d)
+    comp["fp64_rel_dist_bucket_single"] = dist
+    log(f"completion bucket r=64: relative distance of each instance's "
+        f"evaluated costs from the fp64 trajectory, (bucket, single) "
+        f"{[[f'{x:.3e}' for x in d] for d in dist]} (bound "
+        f"{COMP_FP64_FACTOR} x the single's + {COMP_FP64_FLOOR})")
+    # the gate: each instance's bucket route within twice its single
+    # route's distance from the exact trajectory (phase 14's rule): two
+    # fp32 routes of this algebra lie up to some 4e-3 from it, so they
+    # cannot be held to BUCKET_RTOL of each other
+    if not all(b <= COMP_FP64_FACTOR * a + COMP_FP64_FLOOR
+               for b, a in dist):
+        raise AssertionError(f"completion bucket: an instance's bucket "
+                             f"route lies farther from fp64 than its "
+                             f"single route allows: {dist}")
+    it, lc = comp["iters"], comp["launches"]
+    want = {"jacobi.svd": it, "jacobi.eigh": it + -(-it // LR_CHUNK)}
+    if any(lc[k] != v for k, v in want.items()):
+        raise AssertionError(f"completion bucket launches {lc}, expected "
+                             f"{want}")
+    from repro_torch.imaging.lowrank import LowRankCompletionProblem
+    comp["profile"] = profile_bucket(torch, LowRankCompletionProblem(wide),
+                                     insts, LR_CHUNK, LR_PARTS)
+    log(f"completion bucket r=64: profile {json.dumps(comp['profile'])}")
+    del insts
+    scdl_insts = [coupled_patches(SCDL_BUCKET_K, SCDL_P, SCDL_M, SCDL_A,
+                                  torch.Generator().manual_seed(61 + j))
+                  for j in range(SCDL_BUCKET_N)]
+    cfg = SCDLConfig(n_atoms=SCDL_A, max_iter=SCDL_ITERS)
+    scdl, _, _ = run_bucket(torch, f"SCDL bucket K={SCDL_BUCKET_K}", "scdl",
+                         scdl_insts, cfg, SCDL_CHUNK, max_iter=SCDL_ITERS,
+                         cost_every="chunk")
+    it, lc = scdl["iters"], scdl["launches"]
+    want = {"dict_outer_pair": SCDL_BUCKET_N * it, "admm_elwise": it}
+    if any(lc[k] != v for k, v in want.items()):
+        raise AssertionError(f"SCDL bucket launches {lc}, expected {want} "
+                             f"(dict_outer_pair once per instance)")
+    from repro_torch.imaging.scdl import SCDLProblem
+    scdl["profile"] = profile_bucket(torch, SCDLProblem(cfg), scdl_insts,
+                                     SCDL_CHUNK, SCDL_PARTS)
+    log(f"SCDL bucket: profile {json.dumps(scdl['profile'])}")
+    return {"completion": comp, "scdl": scdl}
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -1570,6 +2082,14 @@ KERNELS = {
     "jacobi.svd": ("src/repro_torch/csrc/jacobi.cu",
                    "no TPU kernel: jnp.linalg.svd at "
                    "src/repro/imaging/lowrank.py:66 (XLA)"),
+    "condat_elwise.primal_batched": (
+        "src/repro_torch/csrc/condat_elwise.cu",
+        "src/repro/kernels/condat_elwise/kernel.py:65 under jax.vmap (a "
+        "tau per instance: src/repro/core/engine.py:383)"),
+    "condat_elwise.dual_batched": (
+        "src/repro_torch/csrc/condat_elwise.cu",
+        "src/repro/kernels/condat_elwise/kernel.py:91 under jax.vmap (a "
+        "sig per instance: src/repro/core/engine.py:383)"),
 }
 
 
@@ -1579,6 +2099,11 @@ def main() -> int:
     # the port must be importable from this checkout (fails when the
     # script stands alone)
     import repro_torch  # noqa: F401
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    # the whole log, also when a phase fails (the output shows its end)
+    LOG_FILE.append(open(out_dir / "chip_smoke.log", "w"))
+    log(smi)
     t_start = time.perf_counter()
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -1586,6 +2111,8 @@ def main() -> int:
     report["build_s"] = build_phase()
     log("== kernels against their plain versions")
     errs = kernel_phase(torch)
+    log("== per-instance Condat passes against their plain versions")
+    errs.update(batched_condat_phase(torch))
     log("== main path")
     report["main_path"], bundle = main_path_phase(torch)
     log("== where the time of one iteration goes (torch.profiler)")
@@ -1595,6 +2122,8 @@ def main() -> int:
     report["parity"] = parity_phase(torch)
     log("== timings (CUDA events, median of 30)")
     times = timing_phase(torch)
+    log("== per-instance Condat timings (CUDA events, median of 30)")
+    times.update(batched_timing_phase(torch))
     log("== SCDL kernels against their plain versions")
     errs.update(scdl_kernel_phase(torch))
     log("== SCDL main path")
@@ -1621,11 +2150,20 @@ def main() -> int:
     report["completion"] = completion_phase(torch)
     log("== low-rank timings (CUDA events, median of 30)")
     times.update(lowrank_timing_phase(torch))
+    log("== checkpoints on the main path")
+    report["checkpoints"] = checkpoint_phase(torch)
+    log("== buckets of deconvolutions (solve_many)")
+    report["buckets"] = bucket_phase(torch,
+                                     report["main_path"]["ms_per_iter"])
+    log("== buckets of completions and SCDL (solve_many)")
+    report["buckets"].update(bucket_completion_scdl_phase(torch))
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
                      **{k: report["lowrank_path"]["launches"][k]
-                        for k in LOWRANK_KERNELS}}
+                        for k in LOWRANK_KERNELS},
+                     **{k: report["buckets"]["sparse"]["launches"][k]
+                        for k in BATCHED_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -1647,6 +2185,15 @@ def main() -> int:
         f"ms/iteration at K={SCDL_K} A={SCDL_A}, "
         f"{report['scdl_main_path']['syncs_per_chunk']} host syncs per "
         f"chunk")
+    b = report["buckets"]
+    log(f"buckets: sparse {b['sparse']['ms_per_iter']} ms/iteration for "
+        f"eight instances ({b['sparse']['singles_ms_per_iter_sum']:.4f} "
+        f"summed alone); {SMALL_COUNT} small "
+        f"{b['small']['ms_per_iter']} ({b['small']['singles_ms_per_iter_sum']:.4f}); "
+        f"low rank {b['lowrank']['ms_per_iter']}; completion "
+        f"{b['completion']['ms_per_iter']}; SCDL {b['scdl']['ms_per_iter']}; "
+        f"checkpointed main path "
+        f"{report['checkpoints']['ms_per_iter_checkpointed']}")
     log(f"low-rank path: {report['lowrank_path']['ms_per_iter']} "
         f"ms/iteration at n={MAIN_N} rank={LR_RANK}, completion "
         f"{report['completion']['ms_per_iter']} ms/iteration at "
@@ -1656,8 +2203,6 @@ def main() -> int:
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

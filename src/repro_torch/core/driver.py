@@ -1,6 +1,7 @@
-"""IterativeDriver: the paper's driver program on one device.
+"""IterativeDriver and BatchedDriver: the paper's driver program on one
+device.
 
-Port of the single-instance half of ``repro.core.driver``:
+Port of ``repro.core.driver``:
 
 - ``chunk=1``  — one step and one host sync per iteration;
 - ``chunk=K>1`` — K iterations per dispatch through
@@ -12,30 +13,42 @@ Kept exactly: the chunk clamped to ``max_iter``; ``_converged`` with its
 stride rule (costs ``cost_window x stride`` apart when the log repeats
 skipped objectives); ``progress_fn`` and its ``{"stop": True}``
 control; the straggler watchdog, which leaves each chunk length's first
-call out (it includes the kernel build and FFT plan creation).
+call out (it includes the kernel build and FFT plan creation); the
+runtime checks (``core.checks``: the initial state, the carry contract
+on ``meta`` tensors before the first dispatch, then the costs and the
+state at every host sync) and the checkpoint hook with its cadence rules
+(clamped to ``max_iter``; a chunk that crosses a multiple of the cadence
+checkpoints at its end).  Off, the checks add no operation and no sync.
 
-Not ported yet, and refused loudly when asked for: ``checks`` and
-checkpoints (ROADMAP A9), ``resilience`` (A11), the batched driver
-(A10).
+:class:`BatchedDriver` runs one bucket of ``solve_many`` (module
+``core.engine``'s batched steps): per-instance logs and convergence, an
+active mask, re-compaction, the ``cancel_instances`` control and the
+full-bucket checkpoint payload.  One host sync per chunk.
+
+Not ported yet, and refused loudly when asked for: ``resilience``
+(ROADMAP A11), with the batched driver's supervisor.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import checks as _checks
+from repro_torch.core import persistence as _persist
 from repro_torch.core.bundle import Bundle
-from repro_torch.core.engine import (make_chunk_cost_step, make_scan_step,
-                                     make_step)
+from repro_torch.core.engine import (init_batched_cost_like,
+                                     init_batched_out_like,
+                                     make_batched_chunk_cost_step,
+                                     make_batched_scan_step,
+                                     make_chunk_cost_step, make_scan_step,
+                                     make_step, state_axes)
 
 # RunOptions fields of later slices: name -> (default, ROADMAP item)
 _LATER_FIELDS = {
-    "checkpoint_every": (0, "A9 (checkpoints)"),
-    "checkpoint_fn": (None, "A9 (checkpoints)"),
-    "checks": (False, "A9 (runtime checks)"),
     "resilience": (None, "A11 (resilience)"),
 }
 
@@ -50,10 +63,13 @@ class RunOptions:
     is a positive int (requires ``step_fn_light`` when > 1) or
     ``"chunk"`` (one evaluation per chunk; requires ``step_fn_cost``).
     ``progress_fn`` is called at every chunk boundary with a progress
-    event; a dict return ``{"stop": True}`` halts the run there.
+    event; a dict return ``{"stop": True}`` halts the run there (and, for
+    a bucket, ``{"cancel_instances": [j, ...]}`` freezes those instances).
+    ``checkpoint_fn(state, i)`` is called every ``checkpoint_every``
+    iterations; ``checks`` turns on the runtime checks (also through
+    ``REPRO_CHECKS`` in ``solve``).
 
-    ``checkpoint_every``, ``checkpoint_fn``, ``checks`` and
-    ``resilience`` belong to later slices and raise
+    ``resilience`` belongs to a later slice and raises
     ``NotImplementedError`` when set.
     """
     # run control
@@ -154,11 +170,19 @@ class IterativeDriver:
         self.tol = options.tol
         self.cost_window = options.cost_window
         self.straggler_factor = options.straggler_factor
+        self.checkpoint_fn = options.checkpoint_fn
+        self.checks = options.checks
         self.progress_fn = options.progress_fn
         # a chunk longer than the whole run would never run whole —
         # clamp so the chunk that runs is the one that was asked for
         self.chunk = max(min(int(options.chunk),
                              max(int(options.max_iter), 1)), 1)
+        # the same clamp for the checkpoint cadence (0 stays off): a
+        # cadence longer than the run would never fire, and the final
+        # state is what a resume needs
+        self.checkpoint_every = (min(int(options.checkpoint_every),
+                                     max(int(options.max_iter), 1))
+                                 if options.checkpoint_every else 0)
         self._per_chunk = options.cost_every == "chunk"
         if self._per_chunk:
             if options.step_fn_cost is None or options.step_fn_light is None:
@@ -226,8 +250,38 @@ class IterativeDriver:
                 "dt_s": float(dt),
                 "converged_at": self.log.converged_at}
 
+    # ------------------------------------------------------ checks
+    def _assert_contracts(self, start_iter: int) -> None:
+        """checks=True before the first dispatch: the initial state is
+        finite, and the step's carry keeps its structure, shapes and
+        dtypes — found by running the step on ``meta`` tensors."""
+        data, rep = self.bundle.data, self.bundle.replicated
+        _checks.assert_all_finite({"data": data, "replicated": rep},
+                                  "initial bundle state")
+        what = "{} carry (meta tensors, before any dispatch)"
+        if self.chunk == 1:
+            out = _checks.eval_step_spec(self.step_fn, data, rep, ())
+            _checks.assert_carry_stable(data, out[0],
+                                        what.format("per-step data"))
+            return
+        k = min(self.chunk, max(self.max_iter - start_iter, 1))
+        step = self._scan_step(k)
+        if self._cost_per_chunk or self._skips_cost:
+            out = _checks.eval_step_spec(
+                lambda d, r: step(d, r, start_iter, None), data, rep)
+        else:
+            out = _checks.eval_step_spec(
+                lambda d, r: step(d, r, start_iter), data, rep)
+        _checks.assert_carry_stable((data, rep), (out[0], out[1]),
+                                    what.format("chunked scan"))
+
+    def _checkpoint(self, data, rep, i: int) -> None:
+        self.checkpoint_fn(self.bundle.with_data(data, replicated=rep), i)
+
     # -------------------------------------------------------------- run
     def run(self, start_iter: int = 0) -> Bundle:
+        if self.checks:
+            self._assert_contracts(start_iter)
         if self.chunk == 1:
             return self._run_per_step(start_iter)
         return self._run_chunked(start_iter)
@@ -255,6 +309,12 @@ class IterativeDriver:
             data, rep, last, costs = self._dispatch_chunk(
                 data, rep, last, i, k)
             dt = time.perf_counter() - t0
+            if self.checks:
+                _checks.assert_costs_finite(
+                    costs, f"chunk ending at iteration {i + k - 1}")
+                _checks.assert_all_finite(
+                    {"data": data, "replicated": rep},
+                    f"state after iteration {i + k - 1}")
             self.log.times.extend([dt / k] * k)
             self.log.costs.extend(float(c) for c in np.ravel(costs))
             # a chunk length's first call builds kernels and FFT plans —
@@ -262,7 +322,15 @@ class IterativeDriver:
             if not first_call:
                 if ema is not None and dt > self.straggler_factor * ema:
                     self.log.straggler_steps.append(i)
+                    if self.checkpoint_fn is not None:
+                        self._checkpoint(data, rep, i + k - 1)
                 ema = dt if ema is None else 0.9 * ema + 0.1 * dt
+            # a chunk that crosses a multiple of the cadence checkpoints
+            # its final state
+            if (self.checkpoint_every and self.checkpoint_fn is not None
+                    and (i + k) // self.checkpoint_every
+                    > i // self.checkpoint_every):
+                self._checkpoint(data, rep, i + k - 1)
             i += k
             conv = self._converged()
             if conv:
@@ -305,12 +373,22 @@ class IterativeDriver:
                 cost_val = float(cost)            # the iteration's sync
                 dt = time.perf_counter() - t0
                 self.log.times.append(dt)
+                if self.checks:
+                    _checks.assert_costs_finite(np.asarray([cost_val]),
+                                                f"iteration {i}")
+                    _checks.assert_all_finite(
+                        {"data": data}, f"state after iteration {i}")
                 self.log.costs.append(cost_val)
                 if self.update_replicated is not None:
                     rep = self.update_replicated(rep, out)
             if ema is not None and dt > self.straggler_factor * ema:
                 self.log.straggler_steps.append(i)
+                if self.checkpoint_fn is not None:
+                    self._checkpoint(data, rep, i)
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt
+            if (self.checkpoint_every and self.checkpoint_fn is not None
+                    and (i + 1) % self.checkpoint_every == 0):
+                self._checkpoint(data, rep, i)
             n_done += 1
             conv = self._converged()
             if conv:
@@ -331,3 +409,344 @@ def _sync(data: Dict[str, torch.Tensor]) -> None:
     dev = next(iter(data.values())).device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# --------------------------------------------------------------------
+# Batched multi-instance execution (solve_many)
+# --------------------------------------------------------------------
+
+def _on_device(mask: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index or mask array on ``device``, through pinned memory
+    so the copy does not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(mask))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class BatchedDriver:
+    """Drive one bucket of stacked instances to per-instance convergence.
+
+    The same options and chunked loop as :class:`IterativeDriver`, over
+    the batched state ``{"d", "r"[, "last"]}`` (``core.engine``: every
+    leaf carries the instance axis; ``data_axes`` names the data leaves
+    whose instance axis is not 0) beside the bucket-shared replicated
+    tree ``shared``:
+
+    - each instance has its own :class:`RunLog` (costs, times,
+      ``converged_at``, ``iters_run``);
+    - a converged (or cancelled) instance's lane is frozen by the active
+      mask and stops counting ``iters_run``; its lane still computes
+      until re-compaction;
+    - when the live share drops below ``recompact_below`` the bucket
+      re-compacts at the chunk boundary, which has already synced: the
+      retired lanes go to the host, the live ones are re-stacked on the
+      device by ``index_select``;
+    - checkpoints use the full-bucket layout (:meth:`snapshot_payload`),
+      so restoring does not depend on when compaction happened.
+
+    ``orig_indices`` maps each stacked row to its position in the
+    caller's list of instances.  One host sync per chunk: the (K, B)
+    cost trace.
+    """
+
+    def __init__(self, step_fn: Callable, state: Dict[str, Any],
+                 shared: Optional[Dict[str, Any]] = None, *,
+                 options: Optional[RunOptions] = None,
+                 data_axes: Optional[Dict[str, int]] = None,
+                 orig_indices=None, recompact_below: float = 0.5):
+        self.options = options = options or RunOptions()
+        self.step_fn = step_fn
+        self.step_fn_light = options.step_fn_light
+        self.step_fn_cost = options.step_fn_cost
+        self.update_replicated = options.update_replicated
+        self.light_updates_replicated = options.light_updates_replicated
+        self.max_iter = options.max_iter
+        self.tol = options.tol
+        self.cost_window = options.cost_window
+        self.checkpoint_fn = options.checkpoint_fn
+        self.checks = options.checks
+        self.progress_fn = options.progress_fn
+        self.chunk = max(min(int(options.chunk),
+                             max(int(options.max_iter), 1)), 1)
+        self.checkpoint_every = (min(int(options.checkpoint_every),
+                                     max(int(options.max_iter), 1))
+                                 if options.checkpoint_every else 0)
+        self._per_chunk = options.cost_every == "chunk"
+        if self._per_chunk:
+            if options.step_fn_cost is None or options.step_fn_light is None:
+                raise ValueError(
+                    'cost_every="chunk" requires step_fn_cost AND '
+                    "step_fn_light (see IterativeDriver)")
+            self.cost_every = 1
+        else:
+            if options.step_fn_cost is not None:
+                raise ValueError(
+                    "step_fn_cost is only consumed by the per-chunk "
+                    'objective mode — pass cost_every="chunk" with it')
+            self.cost_every = max(int(options.cost_every), 1)
+        self.recompact_below = float(recompact_below)
+        if set(state) != {"d", "r"}:
+            raise ValueError(f'BatchedDriver expects a state {{"d", "r"}} '
+                             f"(batched data and replicated), got "
+                             f"{sorted(state)}")
+        self.shared = dict(shared or {})
+        self.data_axes = dict(data_axes or {})
+        state = dict(state)
+        if self._cost_per_chunk:
+            state["last"] = init_batched_cost_like(self.step_fn_cost, state,
+                                                   self.shared)
+        elif self._skips_cost:
+            state["last"] = init_batched_out_like(self.step_fn, state,
+                                                  self.shared)
+        self.state = state
+        self.axes = state_axes(state, self.data_axes)
+        k0, v0 = next(iter(state["d"].items()))
+        self.device = v0.device
+        B = int(v0.shape[self.data_axes.get(k0, 0)])
+        self.B0 = B
+        self.orig = (np.asarray(orig_indices, dtype=np.int64)
+                     if orig_indices is not None
+                     else np.arange(B, dtype=np.int64))
+        if len(self.orig) != B:
+            raise ValueError(f"orig_indices has {len(self.orig)} entries "
+                             f"for a batch of {B}")
+        # bookkeeping in full-layout rows [0, B0); slots maps the current
+        # compacted position s to its row
+        self.slots = np.arange(B, dtype=np.int64)
+        self.active = np.ones(B, bool)
+        self.iters_run = np.zeros(B, np.int64)
+        self.converged_at = np.full(B, -1, np.int64)
+        self.logs = [RunLog(iters_run=0) for _ in range(B)]
+        self.retired: Dict[int, Any] = {}    # row -> host instance state
+        self._mask = None                    # (live rows, device mask)
+        self._steps: Dict[int, Callable] = {}
+
+    @property
+    def _skips_cost(self) -> bool:
+        return self.cost_every > 1 and self.step_fn_light is not None
+
+    @property
+    def _cost_per_chunk(self) -> bool:
+        return self._per_chunk and self.chunk > 1
+
+    def _scan_step(self, k: int) -> Callable:
+        if k not in self._steps:
+            if self._cost_per_chunk:
+                self._steps[k] = make_batched_chunk_cost_step(
+                    self.step_fn_light, self.step_fn_cost, chunk=k,
+                    data_axes=self.data_axes,
+                    update_replicated=self.update_replicated)
+            else:
+                self._steps[k] = make_batched_scan_step(
+                    self.step_fn, chunk=k, data_axes=self.data_axes,
+                    update_replicated=self.update_replicated,
+                    fn_light=self.step_fn_light,
+                    cost_every=self.cost_every,
+                    light_updates_replicated=self.light_updates_replicated)
+        return self._steps[k]
+
+    def _converged_log(self, log: RunLog) -> bool:
+        if not self.tol:
+            return False
+        c = log.costs
+        stride = (self.chunk if self._cost_per_chunk
+                  else self.cost_every if self._skips_cost else 1)
+        w = self.cost_window * stride
+        if len(c) <= w:
+            return False
+        prev, cur = c[-w - 1], c[-1]
+        return abs(prev - cur) <= self.tol * max(abs(prev), 1e-12)
+
+    # -------------------------------------------------------- dispatch
+    def _device_mask(self):
+        """The (B,) mask of live lanes on the device, ``None`` when every
+        lane is live (nothing to freeze); rebuilt only when it changes."""
+        live = self.active[self.slots]
+        if live.all():
+            return None
+        if self._mask is None or not np.array_equal(self._mask[0], live):
+            self._mask = (live.copy(), _on_device(live, self.device))
+        return self._mask[1]
+
+    def _dispatch_chunk(self, i: int, k: int):
+        state, trace = self._scan_step(k)(self.state, self.shared,
+                                          self._device_mask(), i)
+        costs = trace["cost"] if isinstance(trace, dict) else trace
+        return state, costs.detach().cpu().numpy()   # the chunk's sync
+
+    def _log_chunk(self, costs, dt: float, i: int, k: int) -> None:
+        per = dt / max(k, 1)
+        for s, row in enumerate(self.slots):
+            row = int(row)
+            if not self.active[row]:
+                continue
+            log = self.logs[row]
+            log.costs.extend(float(c) for c in costs[:, s])
+            log.times.extend([per] * k)
+            self.iters_run[row] += k
+            log.iters_run = int(self.iters_run[row])
+            if self._converged_log(log):
+                self.active[row] = False
+                self.converged_at[row] = i + k - 1
+                log.converged_at = i + k - 1
+
+    def _progress_event(self, start: int, k: int, dt: float) -> dict:
+        """A chunk event with one entry per instance still in the bucket,
+        keyed by the caller's index."""
+        inst = {}
+        for row in self.slots:
+            row = int(row)
+            log = self.logs[row]
+            inst[int(self.orig[row])] = {
+                "cost": (log.costs[-1] if log.costs else None),
+                "iters_run": int(self.iters_run[row]),
+                "converged_at": (int(self.converged_at[row])
+                                 if self.converged_at[row] >= 0 else None)}
+        return {"kind": "chunk", "start": int(start), "iters": int(k),
+                "done": int(start + k), "dt_s": float(dt),
+                "instances": inst}
+
+    def _apply_control(self, ctl: dict, it: int) -> None:
+        """A ``progress_fn`` control return: ``cancel_instances`` freezes
+        the named instances (caller's indices) as if converged; ``stop``
+        cancels every live one."""
+        if ctl.get("stop"):
+            targets = [int(j) for j in self.orig]
+        else:
+            targets = [int(j) for j in (ctl.get("cancel_instances")
+                                        or ())]
+        for j in targets:
+            rows = np.flatnonzero(self.orig == j)
+            if rows.size == 0 or not self.active[int(rows[0])]:
+                continue
+            row = int(rows[0])
+            self.active[row] = False
+            self.logs[row].cancelled_at = it
+
+    # ---------------------------------------------------- re-compaction
+    def _select(self, keep: np.ndarray):
+        """The state's lanes ``keep`` (compacted positions), on the
+        device."""
+        idx = _on_device(keep.astype(np.int64), self.device)
+
+        def pick(x, a):
+            return x.index_select(a, idx)
+
+        return _persist.map_with_axes(pick, self.state, self.axes)
+
+    def _maybe_recompact(self) -> None:
+        cur = self.active[self.slots]
+        n_act = int(cur.sum())
+        B = len(self.slots)
+        if n_act == 0 or n_act >= self.recompact_below * B:
+            return
+        keep = np.flatnonzero(cur)
+        gone = np.flatnonzero(~cur)
+        host = _persist.to_host(self._select(gone))
+        for s, g in enumerate(gone):
+            self.retired[int(self.slots[g])] = _persist.slice_instance(
+                host, s, self.axes)
+        self.state = self._select(keep)
+        self.slots = self.slots[keep]
+
+    # ------------------------------------------------------ checkpoints
+    def payload_template(self) -> Dict[str, Any]:
+        """The structure of :meth:`snapshot_payload` (``meta`` tensors for
+        the state, in the full B0-row layout), for
+        ``checkpoint.restore(..., like=..., device=...)``."""
+        def full(x, a):
+            shape = list(x.shape)
+            shape[a] = self.B0
+            return torch.empty(shape, dtype=x.dtype, device="meta")
+
+        return {"state": _persist.map_with_axes(full, self.state,
+                                                 self.axes),
+                "batch": {"active": np.zeros(self.B0, bool),
+                          "iters_run": np.zeros(self.B0, np.int64),
+                          "converged_at": np.zeros(self.B0, np.int64)}}
+
+    def snapshot_payload(self) -> Dict[str, Any]:
+        """The full-bucket checkpoint payload: the state in B0 rows (the
+        compacted lanes scattered back on the device, the retired ones
+        from their host spills) and the per-instance bookkeeping.  The
+        state stays on the device; the checkpoint writer spills it."""
+        state = self.state
+        if len(self.slots) != self.B0:
+            idx = _on_device(self.slots, self.device)
+
+            def scatter(x, a):
+                shape = list(x.shape)
+                shape[a] = self.B0
+                return torch.zeros(shape, dtype=x.dtype,
+                                   device=x.device).index_copy_(a, idx, x)
+
+            state = _persist.map_with_axes(scatter, state, self.axes)
+            for row, inst in self.retired.items():
+                _persist.set_instance(
+                    state, row, _persist.readmit_batched(self.device, inst),
+                    self.axes)
+        return {"state": state,
+                "batch": {"active": self.active.copy(),
+                          "iters_run": self.iters_run.copy(),
+                          "converged_at": self.converged_at.copy()}}
+
+    def load_payload(self, payload) -> None:
+        """Adopt a full-layout payload (a resume): fresh logs from the
+        restored boundary, as a single solve's resume has."""
+        batch = payload["batch"]
+        iters = np.asarray(batch["iters_run"], dtype=np.int64)
+        conv = np.asarray(batch["converged_at"], dtype=np.int64)
+        self.logs = [RunLog(iters_run=int(iters[r]),
+                            converged_at=(int(conv[r]) if conv[r] >= 0
+                                          else None))
+                     for r in range(self.B0)]
+        self.active = np.asarray(batch["active"]).astype(bool)
+        self.iters_run, self.converged_at = iters, conv
+        self.slots = np.arange(self.B0, dtype=np.int64)
+        self.retired = {}
+        self._mask = None
+        self.state = payload["state"]
+
+    # ---------------------------------------------------------- results
+    def host_states(self) -> Dict[int, Any]:
+        """Each row's final instance state on the host: live lanes
+        sliced out of the device state, retired ones from their spills."""
+        host = _persist.to_host(self.state)
+        out = dict(self.retired)
+        for s, row in enumerate(self.slots):
+            out[int(row)] = _persist.slice_instance(host, s, self.axes)
+        return out
+
+    # ------------------------------------------------------------- run
+    def run(self, start_iter: int = 0) -> "BatchedDriver":
+        if self.checks:
+            _checks.assert_all_finite(
+                {"data": self.state["d"], "replicated": self.state["r"]},
+                "initial bucket state")
+        i = start_iter
+        while i < self.max_iter and bool(self.active.any()):
+            k = min(self.chunk, self.max_iter - i)
+            t0 = time.perf_counter()
+            live = self.active[self.slots]
+            self.state, costs = self._dispatch_chunk(i, k)
+            dt = time.perf_counter() - t0
+            if self.checks:
+                _checks.assert_costs_finite(
+                    costs[:, live],
+                    f"bucket chunk ending at iteration {i + k - 1}")
+                _checks.assert_all_finite(
+                    {"data": self.state["d"], "replicated": self.state["r"]},
+                    f"bucket state after iteration {i + k - 1}")
+            self._log_chunk(costs, dt, i, k)
+            if (self.checkpoint_every and self.checkpoint_fn is not None
+                    and (i + k) // self.checkpoint_every
+                    > i // self.checkpoint_every):
+                self.checkpoint_fn(self.snapshot_payload(), i + k - 1)
+            i += k
+            if self.progress_fn is not None:
+                ctl = self.progress_fn(self._progress_event(i - k, k, dt))
+                if isinstance(ctl, dict):
+                    self._apply_control(ctl, i - 1)
+            self._maybe_recompact()
+        return self

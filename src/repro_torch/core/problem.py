@@ -17,19 +17,34 @@ the JAX one takes a mesh.
 
 Workloads register under a string key (``@register("deconvolve")``) in
 the port's own registry; built-in workloads import lazily on first
-lookup.  Arguments of later slices (``mesh``, ``checkpoint_dir``,
-``resume``, ``checks``, ``resilience``) raise ``NotImplementedError``
-naming their ROADMAP item.
+lookup.
+
+``solve`` takes the runtime checks (``checks=True`` or ``REPRO_CHECKS``)
+and checkpoints (``checkpoint_dir=``, ``checkpoint_every=``,
+``resume=``) as the JAX package does.  :func:`solve_many` runs many
+independent instances in buckets, one batched step per iteration for a
+whole bucket (``core.batching``, ``core.engine``).  Arguments of later
+slices (``mesh``, ``resilience``) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import warnings
 from dataclasses import dataclass, replace
-from typing import Any, Callable, ClassVar, Dict, Optional, Tuple, Type, Union
+from pathlib import Path
+from typing import (Any, Callable, ClassVar, Dict, List, Optional, Tuple,
+                    Type, Union)
 
+import numpy as np
+
+from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.core import batching, checks, persistence
 from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle, gather
-from repro_torch.core.driver import IterativeDriver, RunLog, RunOptions
+from repro_torch.core.driver import (BatchedDriver, IterativeDriver, RunLog,
+                                     RunOptions)
 from repro_torch.kernels.common import resolve_device
 
 
@@ -50,10 +65,17 @@ class Problem:
     ``refresh_replicated(rep, out)`` (fold the output into the broadcast
     state).  Metadata: ``replicated_in_carry``, ``default_chunk``,
     ``default_cost_every``.  ``finalize(bundle, log) -> (x, aux)``.
+
+    ``batched_steps`` declares that the step hooks also take a bucket's
+    batched state (every data leaf with the instance axis at its record
+    axis, every replicated leaf with it first; objectives reduced per
+    instance to (B,)), which :func:`solve_many` needs: the port writes
+    the batch out where the JAX package ``vmap``s.
     """
 
     name: ClassVar[Optional[str]] = None      # set by @register
     replicated_in_carry: ClassVar[bool] = False
+    batched_steps: ClassVar[bool] = False
     default_chunk: ClassVar[int] = 8
     default_cost_every: ClassVar[Union[int, str]] = 1
 
@@ -82,8 +104,7 @@ class Problem:
         return gather(bundle), {}
 
     def batch_axes(self) -> BatchAxes:
-        """How instances batch (consumed by lint rule RPL801 now, by
-        ``solve_many`` once it is ported, ROADMAP A10)."""
+        """How instances batch in :func:`solve_many`."""
         return BatchAxes()
 
     def _declared(self, hook: str) -> Optional[Callable]:
@@ -100,6 +121,8 @@ class Solution:
     log: RunLog
     bundle: Bundle
     problem: Problem
+    # the run's checkpoint writer (its spill and write times), if any
+    checkpointer: Optional[ckpt.Checkpointer] = None
 
     @property
     def costs(self):
@@ -213,6 +236,18 @@ def derive_options(problem: Problem, base: RunOptions) -> RunOptions:
                    light_updates_replicated=problem.replicated_in_carry)
 
 
+def _config_fingerprint(problem: Problem) -> str:
+    """The checkpoint manifest's fingerprint of the workload's config.
+    ``max_iter`` and ``tol`` stay out: they never enter the step math,
+    and extending ``max_iter`` on a resume continues a finished run."""
+    cfg = getattr(problem, "cfg", None)
+    if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
+        kept = {k: v for k, v in sorted(dataclasses.asdict(cfg).items())
+                if k not in ("max_iter", "tol")}
+        return f"{type(cfg).__name__}({kept!r})"
+    return repr(cfg)
+
+
 def _as_problem(problem: Union[str, Problem, Type[Problem]],
                 cfg) -> Problem:
     if isinstance(problem, str):
@@ -253,7 +288,57 @@ def _resolved_options(problem: Problem, options: Optional[RunOptions],
                 f"options= carries step wiring {wired}, which solve() "
                 f"derives from the Problem declaration")
     opts = options if options is not None else problem.default_options()
-    return opts.merged_with(**run_opts)
+    opts = opts.merged_with(**run_opts)
+    # checks=True per call, or REPRO_CHECKS for every solve in the process
+    if checks.checks_enabled(opts.checks) and not opts.checks:
+        opts = replace(opts, checks=True)
+    return opts
+
+
+def _check_checkpoint_args(opts: RunOptions, checkpoint_dir, resume) -> None:
+    """The argument combinations that would read or write nothing."""
+    if checkpoint_dir is None:
+        if resume is not False:
+            raise ValueError("resume= requires checkpoint_dir=")
+        if opts.checkpoint_every and opts.checkpoint_fn is None:
+            raise ValueError(
+                "checkpoint_every= without checkpoint_dir= (or a custom "
+                "checkpoint_fn) would silently write nothing")
+    elif not opts.checkpoint_every and opts.checkpoint_fn is None \
+            and resume is False:
+        raise ValueError(
+            "checkpoint_dir= given but neither checkpoint_every= nor "
+            "resume= requested — no checkpoint would ever be read or "
+            "written")
+
+
+def _resume_step(checkpoint_dir, resume) -> int:
+    """The step ``solve(resume=...)`` restores: an explicit step, which
+    must exist, or the newest intact one."""
+    latest = ckpt.latest_step(checkpoint_dir)
+    if isinstance(resume, int) and not isinstance(resume, bool):
+        if not (Path(checkpoint_dir) / f"step_{resume:08d}"
+                / "manifest.json").exists():
+            raise ValueError(f"no checkpoint for step {resume} under "
+                             f"{str(checkpoint_dir)!r} (latest saved step: "
+                             f"{latest})")
+        return resume
+    if latest is None:
+        raise ValueError(f"resume=True but no checkpoints found under "
+                         f"{str(checkpoint_dir)!r} — wrong directory, or "
+                         f"the first checkpoint was never written")
+    step, corrupt = ckpt.latest_valid_step(checkpoint_dir)
+    if step is None:
+        raise ValueError(f"resume=True but every checkpoint under "
+                         f"{str(checkpoint_dir)!r} failed integrity "
+                         f"validation (corrupt steps: {corrupt}); latest "
+                         f"saved step: {latest}")
+    if corrupt:
+        warnings.warn(f"newest checkpoint(s) {corrupt} under "
+                      f"{str(checkpoint_dir)!r} failed integrity "
+                      f"validation (torn write?); resuming from step "
+                      f"{step} instead", RuntimeWarning, stacklevel=3)
+    return step
 
 
 def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
@@ -269,21 +354,233 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
     (``None`` = ``"cuda"``; raises without a card).  Run control:
     ``options=RunOptions(...)`` replaces the problem's defaults;
     ``**run_opts`` (``max_iter=``, ``tol=``, ``chunk=``,
-    ``cost_every=``, ``progress_fn=``, ...) override field-wise.
+    ``cost_every=``, ``progress_fn=``, ``checks=``, ...) override
+    field-wise.
+
+    Checkpoints: ``checkpoint_dir=`` with ``checkpoint_every=k`` writes
+    the full state (data and replicated) every k iterations, on a
+    writer thread that never makes this thread wait for the device
+    (``checkpoint.Checkpointer``, keep 3).  ``resume=True`` (the newest
+    intact checkpoint, falling back past a torn one with a
+    ``RuntimeWarning``) or ``resume=<step>`` (that step, which must
+    exist) restores into the freshly built bundle and continues, the
+    cost trajectory exactly where the checkpointed run left off.  The
+    manifest's workload and config fingerprint must match.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP A13, multi-device)")
-    if checkpoint_dir is not None or resume is not False:
-        raise NotImplementedError(
-            "checkpoint_dir=/resume= are not ported yet (ROADMAP A9, "
-            "checkpoints)")
     problem = _as_problem(problem, cfg)
     opts = _resolved_options(problem, options, run_opts)
+    _check_checkpoint_args(opts, checkpoint_dir, resume)
     bundle = problem.init_bundle(tuple(inputs), resolve_device(device))
+    start_iter = 0
+    writer = None
+    if checkpoint_dir is not None:
+        # the fingerprint makes a resume under a changed config (same
+        # shapes, other step sizes) fail loudly
+        meta = {"problem": problem.name or type(problem).__name__,
+                "config": _config_fingerprint(problem)}
+        if resume is not False:
+            step = _resume_step(checkpoint_dir, resume)
+            state, _ = ckpt.restore(
+                checkpoint_dir, step,
+                {"data": bundle.data, "replicated": bundle.replicated},
+                expect_meta=lambda m: m.get("problem") == meta["problem"]
+                and m.get("config") == meta["config"])
+            bundle = bundle.with_data(state["data"],
+                                      replicated=state["replicated"])
+            start_iter = step
+        if opts.checkpoint_every and opts.checkpoint_fn is None:
+            writer = ckpt.Checkpointer(checkpoint_dir, meta=meta)
+
+            def checkpoint_fn(b: Bundle, i: int) -> None:
+                # i is the last iteration done: i + 1 are in the state
+                writer.save_async(i + 1, persistence.spill_bundle(b))
+
+            opts = replace(opts, checkpoint_fn=checkpoint_fn)
     driver = IterativeDriver(problem.full_step, bundle,
                              options=derive_options(problem, opts))
-    out = driver.run()
+    out = driver.run(start_iter=start_iter)
+    if writer is not None:
+        writer.wait()       # the last write lands before the run is done
     x, aux = problem.finalize(out, driver.log)
     return Solution(x=x, aux=aux, log=driver.log, bundle=out,
-                    problem=problem)
+                    problem=problem, checkpointer=writer)
+
+
+# --------------------------------------------------------------------
+# Many instances: buckets
+# --------------------------------------------------------------------
+
+def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
+               cfg=None, device=None, mesh=None,
+               options: Optional[RunOptions] = None, checkpoint_dir=None,
+               resume: bool = False, waste_budget: float = 0.25,
+               recompact_below: float = 0.5,
+               **run_opts) -> List[Solution]:
+    """Solve many independent instances of one workload in buckets.
+
+    ``instances`` is a sequence of input tuples, each what the single
+    :func:`solve` would take.  Instances group into buckets by static
+    signature (``Problem.batch_axes``); within a bucket each instance's
+    records are zero-padded to the bucket's capacity (at most
+    ``waste_budget`` of the bucket's rows padding) and stacked, and one
+    batched step per iteration advances the whole bucket.  Each instance
+    converges on its own: its lane freezes, and the bucket re-compacts
+    to its live lanes once fewer than ``recompact_below`` of them are
+    left.
+
+    ``checkpoint_dir=`` with ``checkpoint_every=`` writes each bucket's
+    full-layout checkpoints under ``<checkpoint_dir>/bucket_<key>``;
+    bucket keys are deterministic, so ``resume=True`` (not a step)
+    plans the same buckets and restores each from its newest intact
+    step.
+
+    Returns one :class:`Solution` per instance, unpadded, in input
+    order.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP A13, multi-device)")
+    problem = _as_problem(problem, cfg)
+    opts = _resolved_options(problem, options, run_opts)
+    instances = [tuple(inst) for inst in instances]
+    if not instances:
+        return []
+    if not problem.batched_steps:
+        raise TypeError(
+            f"{type(problem).__name__} does not declare batched_steps: its "
+            f"step hooks must take a bucket's batched state for solve_many")
+    axes = problem.batch_axes()
+    if not isinstance(axes, BatchAxes):
+        raise TypeError(f"{type(problem).__name__}.batch_axes() must return "
+                        f"a batching.BatchAxes, got {type(axes).__name__}")
+    if axes.shared_in_batch and \
+            problem._declared("refresh_replicated") is not None:
+        raise ValueError(
+            f"{type(problem).__name__}: shared_in_batch="
+            f"{axes.shared_in_batch} cannot combine with "
+            f"refresh_replicated — the per-iteration broadcast update "
+            f"rewrites the replicated tree")
+    salt = (f"{problem.name or type(problem).__name__}|"
+            f"{_config_fingerprint(problem)}")
+    plan = batching.plan_buckets(instances, axes,
+                                 waste_budget=waste_budget, salt=salt)
+    if checkpoint_dir is not None:
+        if isinstance(resume, int) and not isinstance(resume, bool):
+            raise ValueError(
+                "solve_many resumes each bucket from its newest valid "
+                "step — pass resume=True, not an explicit step number")
+        if resume and not any(
+                ckpt.latest_step(Path(checkpoint_dir) / f"bucket_{b.key}")
+                is not None for b in plan):
+            raise ValueError(
+                f"resume=True but no bucket checkpoints found under "
+                f"{str(checkpoint_dir)!r} — wrong directory, another "
+                f"instance plan (bucket keys changed), or the first "
+                f"checkpoint was never written")
+    _check_checkpoint_args(opts, checkpoint_dir, resume)
+    dev = resolve_device(device)
+    solutions: List[Optional[Solution]] = [None] * len(instances)
+    for bucket in plan:
+        _run_bucket(problem, bucket, instances, opts, dev, checkpoint_dir,
+                    resume, recompact_below, solutions)
+    return solutions
+
+
+def stack_bucket(problem: Problem, bucket: batching.Bucket, instances,
+                 device) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                  Dict[str, int]]:
+    """One bucket's batched state ``{"d", "r"}``, its shared replicated
+    tree and the data leaves' record axes (where each carries its
+    instance axis)."""
+    # init_bundle runs per instance on the UNPADDED inputs, so derived
+    # state (operator norms, step sizes) is the single solve's; padding
+    # goes onto the built bundle, where zero records are inert
+    bundles = [problem.init_bundle(instances[j], device)
+               for j in bucket.indices]
+    rec_axes = dict(bundles[0].record_axes)
+    shared_keys = tuple(problem.batch_axes().shared_in_batch)
+    missing = [k for k in shared_keys if k not in bundles[0].replicated]
+    if missing:
+        raise ValueError(
+            f"{type(problem).__name__}: batch_axes declares shared "
+            f"replicated keys {missing} absent from init_bundle's "
+            f"replicated tree {sorted(bundles[0].replicated)}")
+    shared = {k: bundles[0].replicated[k] for k in shared_keys}
+    state = {
+        "d": batching.stack_trees(
+            [batching.pad_tree_records(b.data, bucket.capacity, rec_axes)
+             for b in bundles], rec_axes),
+        "r": batching.stack_trees(
+            [{k: v for k, v in b.replicated.items() if k not in shared_keys}
+             for b in bundles])}
+    return state, shared, rec_axes
+
+
+def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
+                opts: RunOptions, device, checkpoint_dir, resume,
+                recompact_below: float,
+                solutions: List[Optional[Solution]]) -> None:
+    """Stack, run and unstack one bucket, writing its Solutions."""
+    state, shared, rec_axes = stack_bucket(problem, bucket, instances,
+                                           device)
+    bopts = opts
+    writer = None
+    bdir = None
+    if checkpoint_dir is not None:
+        bdir = Path(checkpoint_dir) / f"bucket_{bucket.key}"
+        meta = {"problem": problem.name or type(problem).__name__,
+                "config": _config_fingerprint(problem),
+                "bucket": bucket.key, "capacity": int(bucket.capacity),
+                "instances": [int(j) for j in bucket.indices]}
+        if bopts.checkpoint_every and bopts.checkpoint_fn is None:
+            writer = ckpt.Checkpointer(bdir, meta=meta)
+
+            def checkpoint_fn(payload, i: int, _writer=writer) -> None:
+                _writer.save_async(i + 1, payload)
+
+            bopts = replace(bopts, checkpoint_fn=checkpoint_fn)
+    driver = BatchedDriver(problem.full_step, state, shared,
+                           options=derive_options(problem, bopts),
+                           data_axes=rec_axes,
+                           orig_indices=np.asarray(bucket.indices),
+                           recompact_below=recompact_below)
+    del state
+    start_iter = 0
+    if bdir is not None and resume:
+        step, corrupt = ckpt.latest_valid_step(bdir)
+        # a bucket with no checkpoint yet starts from scratch
+        if step is not None:
+            if corrupt:
+                warnings.warn(
+                    f"newest checkpoint(s) {corrupt} under {str(bdir)!r} "
+                    f"failed integrity validation (torn write?); resuming "
+                    f"bucket from step {step} instead", RuntimeWarning,
+                    stacklevel=3)
+            payload, _ = ckpt.restore(
+                bdir, step, driver.payload_template(), device=device,
+                expect_meta=lambda m: m.get("problem") == meta["problem"]
+                and m.get("config") == meta["config"]
+                and m.get("bucket") == meta["bucket"])
+            driver.load_payload(payload)
+            start_iter = step
+    driver.run(start_iter=start_iter)
+    if writer is not None:
+        writer.wait()
+
+    host_shared = persistence.to_host(shared)
+    states = driver.host_states()
+    for row, j in enumerate(bucket.indices):
+        inst = states[row]
+        n = bucket.records[row]
+        data = {k: v.narrow(rec_axes.get(k, 0), 0, n).contiguous()
+                for k, v in inst["d"].items()}
+        b_inst = Bundle(data=data, replicated={**host_shared, **inst["r"]},
+                        device=data[next(iter(data))].device,
+                        record_axes=rec_axes)
+        log = driver.logs[row]
+        x, aux = problem.finalize(b_inst, log)
+        solutions[j] = Solution(x=x, aux=aux, log=log, bundle=b_inst,
+                                problem=problem, checkpointer=writer)

@@ -16,6 +16,12 @@ Step sizes are computed once on the host, exactly as the JAX module
 does (``float(spectral_norm)`` -> :func:`step_sizes`); the solvers then
 hold them as 0-d fp32 device tensors, so no iteration syncs to the host.
 
+Every per-record piece also takes a bucket of instances (``solve_many``):
+stamps (B, n, S, S), the dual stack (J, B, n, S, S) — the same memory as
+the (J, B * n, S, S) stack the starlet kernels write — and step sizes of
+shape (B,), one per instance; the objectives then reduce per instance to
+(B,).
+
 Random draws are a seam: the operator norms and the noise calibration
 take their draws as ``u0=``/``v0=`` (PSF power iteration), ``x0=``
 (starlet power iteration) and ``noise=`` (noise calibration); low-rank
@@ -69,8 +75,17 @@ def grad_from_HX(HX, Y, kf_pair):
 
 
 def data_cost_from(HX, Y):
-    """0.5||Y - H(X)||_F^2 off the carried forward model."""
-    return 0.5 * torch.sum((Y - HX) ** 2)
+    """0.5||Y - H(X)||_F^2 off the carried forward model, per instance
+    when the stamps carry an instance axis."""
+    return 0.5 * torch.sum((Y - HX) ** 2, dim=(-3, -2, -1))
+
+
+def per_instance(v, like):
+    """A step size, 0-d or one per instance (B,), shaped to broadcast
+    against ``like``, whose leading axis is the instance axis."""
+    if v.dim() == 0:
+        return v
+    return v.reshape(tuple(v.shape) + (1,) * (like.dim() - v.dim()))
 
 
 def weight_matrix(psfs, sigma: float, n_scales: int, k_sigma: float, *,
@@ -94,8 +109,19 @@ def sparse_dual_update(U, CX_new, CX, W, sig):
 
 
 def sparse_dual_adjoint(U, n_scales):
-    """Batched Phi^T over the dual stack: (J, n, S, S) -> (n, S, S)."""
-    return starlet_batch.adjoint(U, n_scales)
+    """Batched Phi^T over the dual stack: (J, n, S, S) -> (n, S, S), or
+    (J, B, n, S, S) -> (B, n, S, S) (one launch over all B n stamps)."""
+    s = tuple(U.shape[-2:])
+    out = starlet_batch.adjoint(U.reshape((U.shape[0], -1) + s), n_scales)
+    return out.reshape(tuple(U.shape[1:]))
+
+
+def sparse_forward(X, n_scales):
+    """Batched Phi of the stamps: (n, S, S) -> (J, n, S, S), or
+    (B, n, S, S) -> (J, B, n, S, S) (one launch over all B n stamps)."""
+    s = tuple(X.shape[-2:])
+    out = starlet_batch.forward(X.reshape((-1,) + s), n_scales)
+    return out.reshape((n_scales,) + tuple(X.shape))
 
 
 def primal_update(X, U_adj, grad, tau):
@@ -104,8 +130,9 @@ def primal_update(X, U_adj, grad, tau):
 
 
 def sparse_reg_cost(CX, W):
-    """||W o Phi(X)||_1 off the carried coefficient stack."""
-    return torch.sum(torch.abs(W * CX))
+    """||W o Phi(X)||_1 off the carried coefficient stack, per instance
+    when it carries an instance axis."""
+    return torch.sum(torch.abs(W * CX), dim=(0, -3, -2, -1))
 
 
 def step_sizes(Y, psfs, cfg: SolverConfig, sigma_noise: float,

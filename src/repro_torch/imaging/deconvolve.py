@@ -24,6 +24,16 @@ kernels refuse), so this bundle stores those three leaves scale-major,
 low-rank mode the dual ``Xd`` has no scale axis: it is (n, S, S),
 record-major, in both packages, beside the test matrix ``omega`` in
 ``replicated``.
+
+A bucket of ``solve_many`` stacks each leaf at its record axis: stamps
+(B, n, S, S), the scale-major leaves (J, B, n, S, S), which is the
+(J, B * n, S, S) stack Phi writes over all of a bucket's stamps, so the
+dual kernel reads it with no copy.  The steps below take either: each
+iteration is one Phi, one Phi^T, one primal and one dual launch for the
+whole bucket, with tau and sig one per instance.  An instance may carry
+its own random draws as a trailing dict of its inputs, ``(Y, psfs,
+{"u0": ..., "v0": ..., "x0": ..., "noise": ...})``; it overrides the
+constructor's.
 """
 from __future__ import annotations
 
@@ -39,9 +49,10 @@ from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
 from repro_torch.imaging.condat import (SolverConfig, check_mode,
                                         data_cost_from, grad_from_HX,
-                                        primal_update, sparse_dual_adjoint,
-                                        sparse_dual_update, sparse_reg_cost,
-                                        step_sizes)
+                                        per_instance, primal_update,
+                                        sparse_dual_adjoint,
+                                        sparse_dual_update, sparse_forward,
+                                        sparse_reg_cost, step_sizes)
 from repro_torch.kernels.common import resolve_device, to_device
 from repro_torch.kernels.condat_elwise.ops import condat_primal
 from repro_torch.kernels.starlet2d import ops as starlet_batch
@@ -105,7 +116,7 @@ def _sparse_update(d, rep, cfg: SolverConfig):
     U_adj = sparse_dual_adjoint(U, cfg.n_scales)
     grad = grad_from_HX(d["HX"], d["Y"], d["psf_fp"])
     X_new = primal_update(d["Xp"], U_adj, grad, rep["tau"])
-    CX_new = starlet_batch.forward(X_new, cfg.n_scales)
+    CX_new = sparse_forward(X_new, cfg.n_scales)
     U_new = sparse_dual_update(U, CX_new, CX, W, rep["sig"])
     return dict(d, Xp=X_new, Xd=U_new, CX=CX_new,
                 HX=psf_op.H_fp(X_new, d["psf_fp"])), (W, CX_new)
@@ -119,17 +130,19 @@ def _lowrank_update(d, rep, axes, cfg: SolverConfig):
     grad = grad_from_HX(d["HX"], d["Y"], d["psf_fp"])
     X_new, X_bar = condat_primal(d["Xp"], U, grad, rep["tau"],
                                  with_xbar=True)
-    V = U + sig * X_bar
-    flat = (V / sig).reshape(V.shape[0], -1)
+    s = per_instance(sig, U)
+    V = U + s * X_bar
+    flat = (V / s).reshape(tuple(V.shape[:-2]) + (-1,))
     svt_flat = lr.randomized_svt_local(flat, rep["omega"], cfg.lam / sig,
                                        axes=axes)
-    U_new = V - sig * svt_flat.reshape(V.shape)
+    U_new = V - s * svt_flat.reshape(V.shape)
     return dict(d, Xp=X_new, Xd=U_new, HX=psf_op.H_fp(X_new, d["psf_fp"]))
 
 
 def _nuclear(d, rep, axes):
     """The range finder's nuclear norm of the primal."""
-    return lr.nuclear_norm_rf(d["Xp"].reshape(d["Xp"].shape[0], -1),
+    X = d["Xp"]
+    return lr.nuclear_norm_rf(X.reshape(tuple(X.shape[:-2]) + (-1,)),
                               rep["omega"], axes)
 
 
@@ -190,8 +203,11 @@ class DeconvolutionProblem(Problem):
     operator norms and the noise calibration, ``omega`` low-rank mode's
     test matrix (the JAX package draws them from fixed ``PRNGKey``s that
     torch cannot reproduce); left ``None``, they come from seeded CPU
-    ``torch.Generator``s.
+    ``torch.Generator``s.  A trailing dict of the inputs overrides
+    ``u0``/``v0``/``x0``/``noise`` for that instance.
     """
+
+    batched_steps = True
 
     def __init__(self, cfg: Optional[SolverConfig] = None,
                  sigma_noise: float = 0.02, *, u0=None, v0=None, x0=None,
@@ -206,11 +222,19 @@ class DeconvolutionProblem(Problem):
         self._cost = make_cost_fn(self.cfg)
 
     def init_bundle(self, inputs, device) -> Bundle:
-        Y, psfs = inputs
+        Y, psfs, *rest = inputs
+        draws = {"u0": self.u0, "v0": self.v0, "x0": self.x0,
+                 "noise": self.noise}
+        if rest:
+            (own,) = rest
+            unknown = set(own) - set(draws)
+            if unknown:
+                raise ValueError(f"unknown draws {sorted(unknown)}; an "
+                                 f"instance may carry {sorted(draws)}")
+            draws.update(own)
         bundle, _ = build_bundle(Y, psfs, self.cfg, device=device,
-                                 sigma_noise=self.sigma_noise, u0=self.u0,
-                                 v0=self.v0, x0=self.x0, noise=self.noise,
-                                 omega=self.omega)
+                                 sigma_noise=self.sigma_noise,
+                                 omega=self.omega, **draws)
         return bundle
 
     def full_step(self, d, rep, axes):
@@ -226,11 +250,12 @@ class DeconvolutionProblem(Problem):
         return bundle.data["Xp"].detach().cpu().numpy(), {}
 
     def batch_axes(self):
-        # (Y, psfs) are both stamp-major; the test matrix depends only on
+        # (Y, psfs) are both stamp-major, an instance's own draws (a
+        # trailing dict) carry no records; the test matrix depends only on
         # the config (or the injected draw) and is shared across a
-        # bucket; the noise level and the injected draws are constructor
-        # state shared by declaration
+        # bucket; the noise level and the constructor's draws are shared
+        # by declaration
         shared = ("omega",) if self.cfg.mode == "lowrank" else ()
-        return BatchAxes(record_axes=(0, 0), shared_in_batch=shared,
+        return BatchAxes(record_axes=(0, 0, None), shared_in_batch=shared,
                          instance_invariant=("sigma_noise", "u0", "v0",
                                              "x0", "noise", "omega"))

@@ -24,6 +24,17 @@ and V = Q_B W.  The CPU runs the same algebra, with the factorizations'
 plain versions (``torch.linalg``) in place of the kernels.  Nothing on
 the card's path waits for the device.
 
+Both take a bucket of instances too (``solve_many``): (B, n, p) matrices
+with one shared Omega and a threshold per instance (B,) run as batched
+products, one batched ``torch.linalg.qr`` and one launch of each Jacobi
+kernel over the (B, r, r) matrices.  The two products that sum over the
+n records (the Gram Y^T Y and B = Q^T A) run as one 2-D product per
+matrix (:func:`_over_records`): cuBLAS sums a long 2-D product more
+accurately than its batched kernels do (split-K for the Gram), and the
+range finder's lambda^-1/2 magnifies the difference; a batched bucket of
+completions drifted several times farther from the fp64 trajectory than
+its single solves (``tools/record_sums.py``, ``PERF.md``, PR 17).
+
 ``axes`` (the JAX module's mesh axes to psum over) stays in the
 signatures; the port has one device, and a non-empty value raises
 (ROADMAP A13, multi-device).
@@ -66,29 +77,41 @@ def svt(mat: torch.Tensor, thresh) -> torch.Tensor:
     return (u * s[None, :]) @ vt
 
 
+def _over_records(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x^T z, the sum over the record axis (the second last): one 2-D
+    product per matrix of a batch, so each is summed as a single
+    instance's is (module docstring)."""
+    if x.dim() == 2:
+        return x.T @ z
+    return torch.stack([xi.T @ zi for xi, zi in zip(x, z)])
+
+
 def randomized_svt_local(a_local: torch.Tensor, omega: torch.Tensor,
                          thresh, axes=None, eps: float = 1e-6, *,
                          use_kernel=None) -> torch.Tensor:
-    """SVT of the (n, p) matrix through the range finder (module
-    docstring).  ``omega``: (p, r) test matrix; ``thresh`` a number or a
-    0-d tensor on the device.  ``use_kernel=False`` takes the
-    factorizations' plain versions on the card, for comparison."""
+    """SVT of the (n, p) matrix, or of each of a (B, n, p) batch, through
+    the range finder (module docstring).  ``omega``: (p, r) test matrix;
+    ``thresh`` a number, a 0-d tensor on the device or one per matrix
+    (B,).  ``use_kernel=False`` takes the factorizations' plain versions
+    on the card, for comparison."""
     _single_device(axes)
+    if isinstance(thresh, torch.Tensor) and thresh.dim():
+        thresh = thresh.unsqueeze(-1)
     y = a_local @ omega                              # (n, r)
-    gram = y.T @ y                                   # (r, r)
+    gram = _over_records(y, y)                       # (r, r)
     # orthogonalise through the Gram eigendecomposition (rank-deficient
     # safe: null directions are clipped)
     evals, evecs = jacobi_ops.eigh(gram, use_kernel=use_kernel)
-    scale = torch.where(evals > eps * torch.max(evals),
+    scale = torch.where(evals > eps * evals.amax(dim=-1, keepdim=True),
                         torch.rsqrt(torch.clamp(evals, min=1e-30)),
                         torch.zeros_like(evals))
-    q = y @ (evecs * scale[None, :])                 # (n, r) orthonormal
-    b = q.T @ a_local                                # (r, p)
+    q = y @ (evecs * scale.unsqueeze(-2))            # (n, r) orthonormal
+    b = _over_records(q, a_local)                    # (r, p)
     # svd(B) through B^T = Q_B R: B = R^T Q_B^T, R^T = U S W^T
-    q_b, r_b = torch.linalg.qr(b.T)                  # (p, r), (r, r)
-    u, s, wt = jacobi_ops.svd(r_b.T, use_kernel=use_kernel)
+    q_b, r_b = torch.linalg.qr(b.mT)                 # (p, r), (r, r)
+    u, s, wt = jacobi_ops.svd(r_b.mT, use_kernel=use_kernel)
     s = torch.clamp(s - thresh, min=0.0)
-    return ((q @ u) * s[None, :]) @ (q_b @ wt.T).T   # (n, p)
+    return ((q @ u) * s.unsqueeze(-2)) @ (q_b @ wt.mT).mT   # (n, p)
 
 
 # the range finder's columns beyond the target rank, where a caller names
@@ -151,8 +174,8 @@ def nuclear_norm_rf(X_loc, omega, axes):
     completion workload."""
     _single_device(axes)
     y = X_loc @ omega
-    s2 = jacobi_ops.eigh(y.T @ y, compute_v=False)
-    return torch.sum(torch.sqrt(torch.clamp(s2, min=0.0)))
+    s2 = jacobi_ops.eigh(_over_records(y, y), compute_v=False)
+    return torch.sum(torch.sqrt(torch.clamp(s2, min=0.0)), dim=-1)
 
 
 @register("lowrank")
@@ -166,6 +189,8 @@ class LowRankCompletionProblem(Problem):
     ``cost_every`` and ``"chunk"``).  ``omega`` injects Omega, (p, rank +
     oversample); left ``None`` it is drawn (see the module docstring).
     """
+
+    batched_steps = True
 
     def __init__(self, cfg: Optional[CompletionConfig] = None, *,
                  omega=None):
@@ -197,7 +222,7 @@ class LowRankCompletionProblem(Problem):
         return self._iterate(d, rep, axes)
 
     def cost(self, d, rep, axes):
-        data_part = 0.5 * torch.sum(_masked_residual(d) ** 2)
+        data_part = 0.5 * torch.sum(_masked_residual(d) ** 2, dim=(-2, -1))
         nuc = nuclear_norm_rf(d["X"], rep["omega"], axes)
         return {"cost": data_part + self.cfg.lam * nuc}
 

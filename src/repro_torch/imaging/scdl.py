@@ -39,6 +39,15 @@ Differences from the JAX module, each deliberate:
   is one contiguous block; ``repro_torch.convert`` swaps at the
   boundary.
 - The deprecated ``train`` shim is not ported; use ``solve("scdl", ...)``.
+
+The steps also take a bucket of instances (``solve_many``, which buckets
+SCDL instances only with equal K): every leaf with an instance axis in
+front (``YZ`` (5, B, K, A)), the ridge products and factorizations
+batched, ``admm_elwise`` once over the flattened bucket (its scalars come
+from the config), and ``dict_outer_pair`` once per instance: its kernel
+computes one instance's products, and at the paper's K one launch fills
+the card.  An instance may carry its own atom choice as a trailing dict
+of its inputs, ``(S_h, S_l, {"idx": ...})``.
 """
 from __future__ import annotations
 
@@ -106,8 +115,17 @@ def init_dicts(S_h, S_l, cfg: SCDLConfig, idx=None):
 
 
 def _cho_solve(G, B):
-    """``G^-1 B`` for SPD ``G``, with no host sync (``cholesky_ex``)."""
-    return torch.cholesky_solve(B, torch.linalg.cholesky_ex(G).L)
+    """``G^-1 B`` for SPD ``G``, with no host sync (``cholesky_ex``).
+
+    A bucket's (B, n, n) matrices factor in one batched call, and each
+    then solves on its own: PyTorch's batched ``cholesky_solve`` on the
+    card goes through MAGMA, whose many small launches left a bucket's
+    iteration host-bound (``PERF.md``, PR 17)."""
+    L = torch.linalg.cholesky_ex(G).L
+    if G.dim() == 2:
+        return torch.cholesky_solve(B, L)
+    B = B.expand(tuple(L.shape[:-2]) + tuple(B.shape[-2:]))
+    return torch.stack([torch.cholesky_solve(b, l) for b, l in zip(B, L)])
 
 
 def _solve_factor(X, c):
@@ -130,18 +148,18 @@ def _solve_factor(X, c):
     Dense payloads also carry ``B2 = 2 X G^-1``, so the per-sample solve
     folds in the right-hand-side assembly: ``w = S B2 + Z G^-1``.
     """
-    P, A = X.shape
+    P, A = X.shape[-2:]
 
     def eye(n):
         return torch.eye(n, dtype=X.dtype, device=X.device)
 
     if P < A:
-        C = _cho_solve(0.5 * c * eye(P) + X @ X.T, X)
+        C = _cho_solve(0.5 * c * eye(P) + X @ X.mT, X)
         if 2 * P < A:
             return {"C": C}
-        Gi = (eye(A) - X.T @ C) / c
+        Gi = (eye(A) - X.mT @ C) / c
     else:
-        Gi = _cho_solve(2.0 * X.T @ X + c * eye(A), eye(A))
+        Gi = _cho_solve(2.0 * X.mT @ X + c * eye(A), eye(A))
     return {"Gi": Gi, "B2": 2.0 * X @ Gi}
 
 
@@ -151,7 +169,7 @@ def _ridge_solve(S, Z, X, F, c):
     if "Gi" in F:
         return S @ F["B2"] + Z @ F["Gi"]
     rhs = 2.0 * (S @ X) + Z
-    return (rhs - (rhs @ X.T) @ F["C"]) / c
+    return (rhs - (rhs @ X.mT) @ F["C"]) / c
 
 
 def broadcast_factors(Xh, Xl, cfg: SCDLConfig):
@@ -203,30 +221,38 @@ def _code_updates(d, rep, cfg: SCDLConfig):
     Wh = _ridge_solve(d["Sh"], YZ[3], rep["Xh"], rep["Fh"], c1 + c3)
     Wl = _ridge_solve(d["Sl"], YZ[4] + c3 * Wh, rep["Xl"], rep["Fl"],
                       c2 + c3)
-    YZ = admm_elwise(Wh, Wl, YZ, c1=c1, c2=c2, c3=c3,
-                     t1=cfg.lam_h / c1, t2=cfg.lam_l / c2)
+    # a bucket runs as one flat (5, B K, A) pass: the scalars are shared
+    A = Wh.shape[-1]
+    YZ = admm_elwise(Wh.reshape(-1, A), Wl.reshape(-1, A),
+                     YZ.reshape(5, -1, A), c1=c1, c2=c2, c3=c3,
+                     t1=cfg.lam_h / c1, t2=cfg.lam_l / c2).reshape(YZ.shape)
     return dict(d, Wh=Wh, Wl=Wl, YZ=YZ)
 
 
 def _outer_products(d):
     """Step 9: S^T W and W^T W of both pairs, one ``dict_outer_pair``
-    launch."""
-    ShWh, SlWl, phi_h, phi_l = dict_outer_pair(
-        d["Sh"], d["Sl"], d["Wh"], d["Wl"])
-    return {"ShWh": ShWh, "SlWl": SlWl, "phi_h": phi_h, "phi_l": phi_l}
+    launch (one per instance of a bucket)."""
+    keys = ("ShWh", "SlWl", "phi_h", "phi_l")
+    operands = (d["Sh"], d["Sl"], d["Wh"], d["Wl"])
+    if d["Sh"].dim() == 2:
+        return dict(zip(keys, dict_outer_pair(*operands)))
+    lanes = [dict_outer_pair(*(x[b] for x in operands))
+             for b in range(d["Sh"].shape[0])]
+    return {k: torch.stack([lane[i] for lane in lanes])
+            for i, k in enumerate(keys)}
 
 
 def _dict_update(rep, outer, cfg: SCDLConfig):
     """Step 10 / Eq. (6-7): damped least-squares dictionary update
     ``X = (S W^T)(phi + delta I)^-1`` through Cholesky (phi + delta I is
     SPD), then unit-norm column clipping."""
-    A = rep["Xh"].shape[1]
+    A = rep["Xh"].shape[-1]
     dt = rep["Xh"].dtype
     eye = torch.eye(A, dtype=dt, device=rep["Xh"].device)
 
     def update(phi, SW):
-        X = _cho_solve(phi.to(dt) + cfg.delta * eye, SW.T.to(dt)).T
-        X = X / torch.linalg.norm(X, dim=0, keepdim=True).clamp_min(1.0)
+        X = _cho_solve(phi.to(dt) + cfg.delta * eye, SW.mT.to(dt)).mT
+        X = X / torch.linalg.norm(X, dim=-2, keepdim=True).clamp_min(1.0)
         return X.contiguous()
 
     return {"Xh": update(outer["phi_h"], outer["ShWh"]),
@@ -243,8 +269,8 @@ def _iterate(d, rep, cfg: SCDLConfig):
 def _nrmse(d, rep, Xh, Xl):
     """The paper's Fig. 14 metric: reconstruction error of the
     dictionaries, as 0-d device tensors."""
-    res_h = torch.sum((d["Sh"] - d["Wh"] @ Xh.T) ** 2)
-    res_l = torch.sum((d["Sl"] - d["Wl"] @ Xl.T) ** 2)
+    res_h = torch.sum((d["Sh"] - d["Wh"] @ Xh.mT) ** 2, dim=(-2, -1))
+    res_l = torch.sum((d["Sl"] - d["Wl"] @ Xl.mT) ** 2, dim=(-2, -1))
     nrmse_h = torch.sqrt(res_h / (rep["n_h"] + 1e-12))
     nrmse_l = torch.sqrt(res_l / (rep["n_l"] + 1e-12))
     return {"cost": 0.5 * (nrmse_h + nrmse_l),
@@ -308,6 +334,7 @@ class SCDLProblem(Problem):
     """
 
     replicated_in_carry = True
+    batched_steps = True
 
     def __init__(self, cfg: Optional[SCDLConfig] = None, *, idx=None):
         self.cfg = cfg if cfg is not None else SCDLConfig()
@@ -318,8 +345,15 @@ class SCDLProblem(Problem):
         self._refresh = make_refresh_fn(self.cfg)
 
     def init_bundle(self, inputs, device) -> Bundle:
-        S_h, S_l = inputs
-        return build_bundle(S_h, S_l, self.cfg, device=device, idx=self.idx)
+        S_h, S_l, *rest = inputs
+        idx = self.idx
+        if rest:
+            (own,) = rest
+            if set(own) - {"idx"}:
+                raise ValueError(f"unknown draws {sorted(set(own) - {'idx'})}"
+                                 f"; an instance may carry ('idx',)")
+            idx = own.get("idx", idx)
+        return build_bundle(S_h, S_l, self.cfg, device=device, idx=idx)
 
     def full_step(self, d, rep, axes):
         return self._step(d, rep, axes)
@@ -340,9 +374,10 @@ class SCDLProblem(Problem):
                 rep["Xl"].detach().cpu().numpy()), {}
 
     def batch_axes(self):
-        # samples live on axis 1 of the raw (P, K)/(M, K) patch matrices;
+        # samples live on axis 1 of the raw (P, K)/(M, K) patch matrices,
+        # an instance's own atom choice (a trailing dict) has none;
         # no record padding (the dictionaries are sensitive to the
         # reduction's grouping), and the injected atom choice is shared
         # by declaration
-        return BatchAxes(record_axes=(1, 1), pad_records=False,
+        return BatchAxes(record_axes=(1, 1, None), pad_records=False,
                          instance_invariant=("idx",))

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "repro_starlet_smooth": (_P, _P, _I, _I, _I, _I, _I, _P),
     "repro_starlet_forward": (_P, _P, _I, _I, _I, _I, _I, _P),
     "repro_starlet_adjoint": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_condat_primal": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
-    "repro_condat_dual": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "repro_condat_primal": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_condat_dual": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_admm_elwise": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I, _P),
     "repro_dict_outer": (_I, _P, _P, _P, _P, _P, _I, _L, _I, _P, _L, _I,
                          _P),
@@ -62,6 +62,18 @@ _SIGNATURES = {
     # host-only query (no stream): the split of K and the scratch size
     "repro_dict_outer_plan": (_I, _P, _P, _I, _L, _I, _I, _P, _P),
 }
+
+
+# devices whose tensors take the plain versions: the CPU, and ``meta``
+# tensors, which carry shapes and dtypes only (the driver's contract checks
+# and its +inf seeds run a step on them; nothing is computed)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``t``: every tensor that
+    is neither on the CPU nor ``meta`` (a non-CUDA one then raises)."""
+    return t.device.type not in PLAIN_DEVICES
 
 
 def resolve_device(device: Union[None, str, torch.device] = None

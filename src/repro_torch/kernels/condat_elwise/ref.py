@@ -11,14 +11,25 @@ iterations, so X_bar is never formed on the sparse path.
 
 Accumulation in fp32, results cast back to the input dtype (the kernel
 contract).  ``tau``/``sig`` may be Python numbers or one-element fp32
-tensors on the operands' device."""
+tensors on the operands' device, or one step size per instance of a
+bucket, (B,): the operands then carry the instance axis fourth from the
+end, (..., B, n, S, S), and the step size broadcasts as (B, 1, 1, 1)."""
 from __future__ import annotations
 
 import torch
 
 
 def _scalar(v, like):
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    """The step size, shaped to broadcast against ``like``: a scalar, or
+    (B, 1, 1, 1) against a (..., B, n, S, S) operand."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    if t.numel() == 1:
+        return t.reshape(())
+    if like.dim() < 4 or like.shape[-4] != t.numel():
+        raise ValueError(f"{t.numel()} step sizes for an operand of shape "
+                         f"{tuple(like.shape)} (instance axis fourth from "
+                         f"the end)")
+    return t.reshape(-1, 1, 1, 1)
 
 
 def condat_primal_ref(X, U_adj, grad, tau, *, with_xbar: bool = False):

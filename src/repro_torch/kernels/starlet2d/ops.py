@@ -8,8 +8,8 @@ one launch of a fused cascade that keeps every scale on chip
 (``kernel.py``).  ``decompose`` stays composed of single smoothings: no
 solver calls it.
 
-Dispatch rule: a CPU tensor takes the plain version (``ref.py``); any
-other tensor launches the CUDA kernel or raises — there is no fallback.
+Dispatch rule: a CPU tensor takes the plain version (``ref.py``), and
+so does a ``meta`` tensor (shapes only); any other tensor launches the CUDA kernel or raises — there is no fallback.
 ``use_kernel=False`` selects the plain version on the card, for
 comparing the two; ``use_kernel=True`` on a CPU tensor raises.
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.starlet2d.kernel import (smooth_fwd,
                                                   starlet_adjoint_fwd,
                                                   starlet_forward_fwd)
@@ -25,7 +26,7 @@ from repro_torch.kernels.starlet2d.ref import (adjoint_ref, cascade,
 
 
 def _kernel(t, use_kernel) -> bool:
-    return t.device.type != "cpu" if use_kernel is None else use_kernel
+    return common.on_card(t) if use_kernel is None else use_kernel
 
 
 def smooth(imgs, *, scale: int, use_kernel=None):

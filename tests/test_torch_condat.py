@@ -113,6 +113,75 @@ def test_condat_dual_matches_jax(case, dtype):
                                          interpret=True)), **_tol(dtype))
 
 
+# a step size per instance (solve_many): B instances of n stamps each,
+# n ragged against the 128-stamp block of the JAX kernel
+PER_INSTANCE = [(8, 13, 21), (3, 37, 21), (1, 16, 13)]
+
+
+@pytest.mark.parametrize("case", PER_INSTANCE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_condat_primal_per_instance_matches_jax_vmap(case, dtype):
+    """tau of shape (B,) over (B, n, S, S) stamps against the JAX
+    package's Pallas kernel under ``jax.vmap`` (interpret mode), as its
+    ``solve_many`` batches it; and each instance bit-identical to its own
+    call with one step size."""
+    B, n, S = case
+    jdt, tdt = DTYPES[dtype]
+    X, Ua, g = (_draw(70 + i, (B, n, S, S), jdt) for i in range(3))
+    tau = np.linspace(0.2, 0.5, B).astype(np.float32)
+    tX, tUa, tg = (_t(a, tdt) for a in (X, Ua, g))
+    xn, xb = ops.condat_primal(tX, tUa, tg, torch.tensor(tau),
+                               with_xbar=True)
+
+    def one(x, u, gr, t):
+        return jops.condat_primal(x, u, gr, t, with_xbar=True,
+                                  use_kernel=True, interpret=True)
+
+    kn, kb = jax.vmap(one)(*(jnp.asarray(a, jdt) for a in (X, Ua, g)),
+                           jnp.asarray(tau))
+    np.testing.assert_allclose(_f32(xn), _f32(kn), **_tol(dtype))
+    np.testing.assert_allclose(_f32(xb), _f32(kb), **_tol(dtype))
+    for b in range(B):
+        rn, rb = ops.condat_primal(tX[b], tUa[b], tg[b],
+                                   torch.tensor(tau[b]), with_xbar=True)
+        assert torch.equal(xn[b], rn) and torch.equal(xb[b], rb)
+
+
+@pytest.mark.parametrize("case", PER_INSTANCE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_condat_dual_per_instance_matches_jax_vmap(case, dtype):
+    """sig of shape (B,) over the scale-major (J, B, n, S, S) stack of a
+    bucket against the JAX kernel under ``jax.vmap`` (interpret mode);
+    each instance bit-identical to its own call."""
+    B, n, S = case
+    J = 3
+    jdt, tdt = DTYPES[dtype]
+    U, Cn, Co = (_draw(80 + i, (J, B, n, S, S), jdt) for i in range(3))
+    W = _draw(83, (J, B, n, 1, 1), jdt, uniform=True)
+    sig = np.linspace(0.3, 0.6, B).astype(np.float32)
+    tin = [_t(a, tdt) for a in (U, Cn, Co, W)]
+    got = ops.condat_dual(*tin, torch.tensor(sig))
+
+    def one(u, cn, co, w, s):
+        return jops.condat_dual(u, cn, co, w, s, use_kernel=True,
+                                interpret=True)
+
+    want = jax.vmap(one, in_axes=(1, 1, 1, 1, 0), out_axes=1)(
+        *(jnp.asarray(a, jdt) for a in (U, Cn, Co, W)), jnp.asarray(sig))
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    for b in range(B):
+        own = ops.condat_dual(*(x[:, b] for x in tin), torch.tensor(sig[b]))
+        assert torch.equal(got[:, b], own)
+
+
+def test_per_instance_step_sizes_must_match_the_instance_axis():
+    X = _t(_draw(1, (2, 4, 9, 9), jnp.float32))
+    with pytest.raises(ValueError, match="instance axis"):
+        ops.condat_primal(X, X, X, torch.tensor([0.1, 0.2, 0.3]))
+    with pytest.raises(ValueError, match="instance axis"):
+        ops.condat_dual(X, X, X, X[..., :1, :1], torch.tensor([0.1] * 4))
+
+
 def test_dual_weight_broadcasts_over_leading_axes():
     """A per-record weight (1, n, 1, 1) broadcasts over the scales."""
     U, Cn, Co = (_draw(50 + i, (3, 8, 9, 9), jnp.float32) for i in range(3))

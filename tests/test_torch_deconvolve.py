@@ -211,15 +211,36 @@ def test_solve_without_cuda_raises(case):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "A13"),
-    (dict(checkpoint_dir="ckpt"), "A9"),
-    (dict(resume=True), "A9"),
-    (dict(checks=True), "A9"),
     (dict(resilience=object()), "A11"),
 ])
 def test_later_slice_options_raise(case, kwargs, item):
     Y, P, _ = case
     with pytest.raises(NotImplementedError, match=item):
         solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(checkpoint_dir="ckpt"), "checkpoint_every"),
+    (dict(resume=True), "checkpoint_dir"),
+    (dict(checkpoint_every=2), "checkpoint_dir"),
+    (dict(checks=True), None),
+])
+def test_checkpoint_and_check_options(case, kwargs, match, tmp_path,
+                                      monkeypatch):
+    """The options of ROADMAP A9: a checkpoint directory with neither a
+    cadence nor a resume, a resume or a cadence without a directory
+    raise; ``checks=True`` runs clean and leaves the trajectory as it
+    is."""
+    monkeypatch.chdir(tmp_path)
+    Y, P, draws = case
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            solve(_problem(draws), Y, P, device="cpu", max_iter=1, **kwargs)
+        return
+    off = solve(_problem(draws), Y, P, device="cpu", max_iter=4, chunk=2)
+    on = solve(_problem(draws), Y, P, device="cpu", max_iter=4, chunk=2,
+               **kwargs)
+    assert on.log.costs == off.log.costs
 
 
 def test_lowrank_workload_is_ported():

@@ -123,12 +123,16 @@ def test_run_options_validation():
         RunOptions(cost_every="sometimes")
     with pytest.raises(ValueError, match="chunk"):
         RunOptions(chunk=0)
-    for name, value, item in (("checkpoint_every", 5, "A9"),
-                              ("checkpoint_fn", print, "A9"),
-                              ("checks", True, "A9"),
-                              ("resilience", object(), "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            RunOptions(**{name: value})
+    with pytest.raises(NotImplementedError, match="A11"):
+        RunOptions(resilience=object())
+
+
+@pytest.mark.parametrize("name,value", [("checkpoint_every", 5),
+                                        ("checkpoint_fn", print),
+                                        ("checks", True)])
+def test_run_options_accept_checks_and_checkpoints(name, value):
+    """The runtime checks and the checkpoint hook are run control now."""
+    assert getattr(RunOptions(**{name: value}), name) == value
 
 
 def test_driver_wiring_errors():

@@ -326,5 +326,6 @@ def test_solve_without_cuda_raises(case):
 
 def test_batch_axes_name_what_init_bundle_reads():
     ax = scdl.SCDLProblem().batch_axes()
-    assert ax.record_axes == (1, 1) and not ax.pad_records
+    # the third entry: an instance's own atom choice carries no records
+    assert ax.record_axes == (1, 1, None) and not ax.pad_records
     assert ax.instance_invariant == ("idx",)

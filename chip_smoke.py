@@ -90,7 +90,29 @@ prints its final line):
 18. buckets of four completions at r = 64 (2400-2600 rows, one shared
     Omega; one Jacobi launch per kernel an iteration) and of four SCDL
     instances at K = 10 000 (``dict_outer_pair`` once per instance an
-    iteration), each instance against its single solve (rtol 1e-4).
+    iteration), each instance against its single solve (rtol 1e-4);
+19. supervision on the main path: phase 4's solve (tol 0) with
+    ``resilience=ResilienceConfig()``, one host sync per chunk, costs and
+    iterate bit-identical to the unsupervised run, ms per iteration and
+    the ring's device memory beside it; under a dispatch fault, a
+    poisoned carry, a ``kernel:condat_elwise`` fault and a torn newest
+    checkpoint (checkpoints every 24 under ``build/``): bit-identical
+    again, ``kernel_fallbacks == []``, the report printed, and
+    ``resume=True`` falling back past the torn checkpoint bit for bit;
+    phase 17's bucket with a poisoned carry (one rollback, one sync per
+    chunk, every instance bit-identical to the fault-free bucket); a run
+    at n = 256 that diverges every chunk raises ``ResilienceExhausted``;
+20. serving on the card: ``serve_http`` on 127.0.0.1 and eight
+    concurrent ``ServeClient`` requests of phase 17's catalogues: one
+    bucket, one ``solve_many`` dispatch, one Phi, Phi^T, primal and dual
+    launch an iteration; each HTTP result against its single solve (rtol
+    1e-4, equal ``iters_run``) and bit for bit against ``solve_many`` in
+    process on the same arrays in the served lane order; whether it is
+    bit-identical to phase 17's bucket (reported: a lane's position in
+    the stack can change the last bits); latency p50/p99, the codec's
+    seconds and ms per
+    iteration beside phase 17's; then the three drills of
+    ``repro_torch.serve.drill`` on the card.
 
 Phases 3 and 6 also hold the Condat passes with a step size per
 instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
@@ -1882,6 +1904,10 @@ def run_bucket(torch, label, key, insts, cfg, chunk, rtol=BUCKET_RTOL,
     return out, sols, singles
 
 
+# phase 17's bucket of eight and its single solves, for phase 20
+PHASE17 = {}
+
+
 def bucket_phase(torch, main_ms):
     """Phase 4's stamps as a bucket of eight instances, sparse and low
     rank; 64 small instances as one bucket."""
@@ -1911,9 +1937,11 @@ def bucket_phase(torch, main_ms):
     for inst in insts:
         problem.init_bundle(inst, torch.device("cuda"))
     setup = read_launches()
-    sparse, sols, _ = run_bucket(
+    sparse, sols, singles = run_bucket(
         torch, "bucket of eight, sparse", "deconvolve", insts, cfg,
         MAIN_CHUNK, max_iter=MAIN_ITERS, cost_every="chunk", tol=1e-5)
+    # phase 20 serves these eight catalogues and holds them to these runs
+    PHASE17.update(bucket=sols, singles=singles)
     it, lc = sparse["iters"], sparse["launches"]
     want = {"condat_elwise.primal": it, "condat_elwise.dual": it,
             "condat_elwise.primal_batched": it,
@@ -2052,6 +2080,363 @@ def bucket_completion_scdl_phase(torch):
     return {"completion": comp, "scdl": scdl}
 
 
+# ---------------------------------------------------------------- 19
+# the supervised main path: phase 4's solve with a fault at each kind of
+# point (a dispatch, a poisoned carry, a kernel wrapper, the newest
+# checkpoint torn: a resume reads the newest first, so the fault sits on
+# the second of the two checkpoints for the resume to fall back past it)
+SUP_SPEC = ("dispatch@1;carry_nan@3;kernel:condat_elwise@2;ckpt_corrupt@1;"
+            "seed=11")
+SUP_BUCKET_SPEC = "carry_nan@2;seed=7"
+SUP_SMALL_N = 256
+# leaves of the deconvolution that a step replaces (the others pass
+# through unchanged and are shared with the ring's entries)
+CARRIED = ("Xp", "HX", "Xd", "CX")
+
+
+def chunk_ms(sol, chunk=MAIN_CHUNK):
+    """Median over chunks after the first of a run's ms per iteration."""
+    return statistics.median(t * 1e3 for t in sol.log.times[chunk::chunk])
+
+
+def same_run(a, b):
+    """Costs and iterate equal bit for bit."""
+    import numpy as np
+    return a.log.costs == b.log.costs and np.array_equal(a.x, b.x)
+
+
+def supervision_phase(torch, main_ms):
+    """Phase 4's solve under ``resilience=``: (a) fault-free, against the
+    unsupervised run; (b) with faults, checkpoints and a resume past the
+    torn one; (c) phase 17's bucket with a poisoned carry; (d) a run
+    that diverges every chunk exhausts its rollbacks."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_valid_step
+    from repro_torch.core.problem import solve, solve_many
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    from repro_torch.resilience import chaos
+    from repro_torch.resilience.errors import ResilienceExhausted
+    from repro_torch.resilience.recovery import ResilienceConfig
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    kw = dict(cfg=SolverConfig(mode="sparse", n_scales=SCALES),
+              max_iter=MAIN_ITERS, chunk=MAIN_CHUNK, cost_every="chunk",
+              tol=0.0)
+    def peak_over_start(run):
+        """``run()`` and its peak device memory above what was allocated
+        when it started; the result keeps no tensor on the card."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        sol = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        carry = sum(sol.bundle.data[k].numel()
+                    * sol.bundle.data[k].element_size() for k in CARRIED)
+        sol.bundle = None
+        return sol, peak, carry
+
+    plain, plain_peak, carry = peak_over_start(
+        lambda: solve("deconvolve", data.Y, data.psfs, **kw))
+
+    # (a) no fault
+    reset_launches()
+    (sup, sup_peak, _), wall, syncs = run_counting_syncs(
+        torch, lambda progress: peak_over_start(lambda: solve(
+            "deconvolve", data.Y, data.psfs, progress_fn=progress,
+            resilience=ResilienceConfig(), **kw)))
+    launches = read_launches()
+    rec = sup.recovery
+    if syncs != 1:
+        raise AssertionError(f"supervised: {syncs} host syncs per chunk, "
+                             f"expected 1")
+    if not same_run(sup, plain):
+        raise AssertionError("supervision changed the trajectory")
+    if rec is None or rec.faults or rec.retries or rec.rollbacks:
+        raise AssertionError(f"fault-free supervised run reports {rec}")
+    if launches["condat_elwise.primal"] != MAIN_ITERS or \
+            launches["condat_elwise.dual"] != MAIN_ITERS:
+        raise AssertionError(f"supervised launches {launches}")
+    out = {"syncs_per_chunk": syncs, "ms_per_iter": chunk_ms(sup),
+           "plain_ms_per_iter": chunk_ms(plain),
+           "main_path_ms_per_iter": main_ms, "wall_s": wall,
+           "peak_bytes": sup_peak, "plain_peak_bytes": plain_peak,
+           "ring_bytes_measured": sup_peak - plain_peak,
+           "ring_bytes_expected": (ResilienceConfig().ring - 1) * carry,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"supervised main path: {out['ms_per_iter']} ms/iteration "
+        f"(unsupervised {out['plain_ms_per_iter']}, phase 4 {main_ms}); "
+        f"host syncs per chunk {syncs}; costs and iterate bit-identical "
+        f"to the unsupervised run; ring on the card: peak over the run's "
+        f"start {sup_peak / 1e9:.3f} GB against {plain_peak / 1e9:.3f} GB "
+        f"unsupervised ({(sup_peak - plain_peak) / 1e9:.3f} GB; the "
+        f"ring's older entry, the leaves a chunk replaces, "
+        f"{out['ring_bytes_expected'] / 1e9:.3f} GB: its newest is the "
+        f"chunk's input, which an unsupervised run holds too)")
+
+    # (b) faults, checkpoints, a resume past the torn one
+    ckdir = ROOT / "build" / "chip_smoke_supervised"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        with chaos.active_chaos(chaos.ChaosConfig.parse(SUP_SPEC)) as st:
+            t0 = time.perf_counter()
+            faulted = solve("deconvolve", data.Y, data.psfs,
+                            checkpoint_dir=ckdir,
+                            checkpoint_every=CKPT_EVERY,
+                            resilience=ResilienceConfig(), **kw)
+            faulted_wall = time.perf_counter() - t0
+            fired = list(st.fired)
+        valid = latest_valid_step(ckdir)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rest = solve("deconvolve", data.Y, data.psfs,
+                         checkpoint_dir=ckdir, resume=True, **kw)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    frec = faulted.recovery
+    want_fired = {"dispatch", "carry_nan", "kernel:condat_elwise",
+                  "ckpt_corrupt"}
+    if {k for k, _ in fired} != want_fired:
+        raise AssertionError(f"faults fired {fired}, expected {want_fired}")
+    if frec.kernel_fallbacks != []:
+        raise AssertionError(f"kernel_fallbacks {frec.kernel_fallbacks}")
+    if frec.rollbacks != 1 or frec.retries != 2:
+        raise AssertionError(f"faulted run: {frec}")
+    if not same_run(faulted, sup):
+        raise AssertionError("the faulted run is not bit-identical to the "
+                             "fault-free one")
+    back = CKPT_EVERY
+    if valid != (back, [2 * CKPT_EVERY]):
+        raise AssertionError(f"latest valid checkpoint {valid}")
+    tail = plain.log.costs[back:]
+    want = [float("inf")] * (MAIN_CHUNK - 1) + tail[MAIN_CHUNK - 1:]
+    if rest.log.costs != want or not np.array_equal(rest.x, plain.x) or \
+            not any("integrity" in str(w.message) for w in caught):
+        raise AssertionError(f"resume past the torn checkpoint: costs "
+                             f"{rest.log.costs[-1]!r} against {tail[-1]!r}")
+    out["faulted"] = {"report": frec.to_json(), "fired": fired,
+                      "wall_s": faulted_wall,
+                      "lost_s_per_fault": frec.wall_time_lost_s
+                      / max(len(frec.faults), 1),
+                      "resumed_from": back}
+    log(f"supervised faults {SUP_SPEC}: retries {frec.retries}, rollbacks "
+        f"{frec.rollbacks}, checkpoint restores "
+        f"{frec.checkpoint_restores}, kernel_fallbacks "
+        f"{frec.kernel_fallbacks}, wall_time_lost_s "
+        f"{frec.wall_time_lost_s:.4f} ({len(frec.faults)} faults: "
+        f"{[(f['point'], f['step']) for f in frec.faults]}), wall "
+        f"{faulted_wall:.2f} s against {wall:.2f} s; costs and iterate "
+        f"bit-identical to the fault-free run; resume=True fell back past "
+        f"the torn step {2 * CKPT_EVERY} to {back}: bit-identical tail")
+
+    # (c) phase 17's bucket, a poisoned carry
+    edges = np.cumsum((0,) + BUCKET_SIZES)
+    insts = [(data.Y[a:b], data.psfs[a:b])
+             for a, b in zip(edges[:-1], edges[1:])]
+    bkw = dict(kw, tol=1e-5)
+    clean, _, csyncs = run_counting_syncs(
+        torch, lambda progress: solve_many(
+            "deconvolve", insts, progress_fn=progress,
+            resilience=ResilienceConfig(), **bkw))
+    with chaos.active_chaos(chaos.ChaosConfig.parse(SUP_BUCKET_SPEC)):
+        hit, _, hsyncs = run_counting_syncs(
+            torch, lambda progress: solve_many(
+                "deconvolve", insts, progress_fn=progress,
+                resilience=ResilienceConfig(), **bkw))
+    brec = hit[0].recovery
+    if csyncs != 1 or hsyncs != 1:
+        raise AssertionError(f"supervised bucket: host syncs per chunk "
+                             f"{csyncs} and {hsyncs}, expected 1")
+    if brec.rollbacks != 1 or brec.retries:
+        raise AssertionError(f"bucket under {SUP_BUCKET_SPEC}: {brec}")
+    if not all(same_run(h, c) for h, c in zip(hit, clean)):
+        raise AssertionError("an instance of the rolled-back bucket is not "
+                             "bit-identical to the fault-free bucket")
+    out["bucket"] = {"report": brec.to_json(), "syncs_per_chunk": hsyncs,
+                     "ms_per_iter": bucket_ms(clean, MAIN_CHUNK)}
+    log(f"supervised bucket of eight under {SUP_BUCKET_SPEC}: rollbacks "
+        f"{brec.rollbacks}, wall_time_lost_s {brec.wall_time_lost_s:.4f}; "
+        f"host syncs per chunk {hsyncs}; every instance bit-identical to "
+        f"the fault-free bucket ({out['bucket']['ms_per_iter']} "
+        f"ms/iteration supervised)")
+
+    # (d) a run that diverges every chunk
+    small = simulate(SUP_SMALL_N, torch.Generator().manual_seed(7),
+                     stamp=STAMP)
+    spec = "carry_nan@" + ",".join(str(i) for i in range(16))
+    try:
+        with chaos.active_chaos(chaos.ChaosConfig.parse(spec)):
+            solve("deconvolve", small.Y, small.psfs,
+                  resilience=ResilienceConfig(max_rollbacks=1), **kw)
+    except ResilienceExhausted as e:
+        out["exhausted"] = str(e)[:120]
+        log(f"diverging every chunk at n={SUP_SMALL_N}, max_rollbacks=1: "
+            f"ResilienceExhausted ({out['exhausted']}...)")
+    else:
+        raise AssertionError("a run diverging every chunk did not exhaust "
+                             "its rollbacks")
+    return out
+
+
+# ---------------------------------------------------------------- 20
+SERVE_WINDOW_S = 30.0      # the bucket dispatches at its eighth member
+
+
+def serving_phase(torch, phase17):
+    """Phase 17's eight catalogues as eight concurrent HTTP requests: one
+    bucket, one ``solve_many`` dispatch; each result against its single
+    solve; the codec's seconds; then the three drills on the card."""
+    import shutil
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.core.problem import solve_many
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    from repro_torch.serve import codec, drill
+    from repro_torch.serve.client import ServeClient
+    from repro_torch.serve.server import ServeConfig, serve_http
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    edges = np.cumsum((0,) + BUCKET_SIZES)
+    insts = [(data.Y[a:b], data.psfs[a:b])
+             for a, b in zip(edges[:-1], edges[1:])]
+    cfg = dict(mode="sparse", n_scales=SCALES)
+    options = dict(max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
+                   cost_every="chunk", tol=1e-5)
+
+    # the codec on the largest request: its client encode and server decode
+    big = max(insts, key=lambda inst: inst[0].shape[0])
+    t0 = time.perf_counter()
+    body = json.dumps({"problem": "deconvolve",
+                       "inputs": [codec.encode_input(x) for x in big]})
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = codec.decode_inputs(json.loads(body)["inputs"])
+    dec_s = time.perf_counter() - t0
+    if not all(np.array_equal(b, x.cpu().numpy()) for b, x in zip(back, big)):
+        raise AssertionError("codec round trip is not exact")
+    nbytes = sum(x.numel() * x.element_size() for x in big)
+    log(f"codec: a request of {big[0].shape[0]} stamps ({nbytes / 1e6:.2f} "
+        f"MB of arrays, {len(body) / 1e6:.2f} MB of JSON): encode "
+        f"{enc_s:.4f} s, decode {dec_s:.4f} s")
+
+    handle = serve_http(ServeConfig(max_batch=len(insts),
+                                    batch_window_s=SERVE_WINDOW_S),
+                        host="127.0.0.1", port=0)
+    try:
+        client = ServeClient(handle.url, timeout=300)
+        ids = [None] * len(insts)
+
+        def send(j):
+            ids[j] = client.submit("deconvolve", insts[j], cfg=cfg,
+                                   options=options)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=send, args=(j,))
+                           for j in range(len(insts))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                results = [client.result(rid, include_x=True, timeout=300)
+                           for rid in ids]
+                wall = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+        launches = read_launches()
+        metrics = client.metrics()
+    finally:
+        handle.close()
+    if metrics["batch_occupancy"]["batches"] != 1 or \
+            {r["batch_size"] for r in results} != {len(insts)} or \
+            len({r["bucket_key"] for r in results}) != 1:
+        raise AssertionError(f"the eight requests did not coalesce into one "
+                             f"bucket: {metrics['batch_occupancy']}")
+    it = max(r["iters_run"] for r in results)
+    setup = phase17["setup_launches"]
+    want = {"condat_elwise.primal": it, "condat_elwise.dual": it,
+            "condat_elwise.primal_batched": it,
+            "condat_elwise.dual_batched": it,
+            "starlet2d.forward": it + setup.get("starlet2d.forward", 0),
+            "starlet2d.adjoint": it + setup.get("starlet2d.adjoint", 0),
+            "starlet2d.smooth": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"served bucket launches {launches}, expected "
+                             f"{want}: one Phi, Phi^T, primal and dual a "
+                             f"bucket iteration")
+    served = [SimpleNamespace(log=SimpleNamespace(
+        costs=r["costs"], iters_run=r["iters_run"]), x=r["x"])
+        for r in results]
+    gap = hold_instances("served bucket", served, phase17["singles"])
+    identical = all(same_run(s, b)
+                    for s, b in zip(served, phase17["bucket"]))
+    # the same bucket in this process, on host copies of the inputs in
+    # the order the service stacked them (admission order: its tokens)
+    order = sorted(range(len(ids)),
+                   key=lambda j: handle.runner.service.records[ids[j]]._token)
+    host = [tuple(x.cpu().numpy() for x in insts[j]) for j in order]
+    direct = solve_many("deconvolve", host, cfg=SolverConfig(**cfg),
+                        **options)
+    in_process = all(same_run(served[j], d) for j, d in zip(order, direct))
+    if not in_process:
+        raise AssertionError(f"the served results differ from solve_many "
+                             f"in process on the same arrays in the served "
+                             f"lane order {order}")
+    ms = statistics.median(r["time_percentiles_s"]["p50"] * 1e3
+                           for r in results)
+    lat = metrics["latency_s"]
+    out = {"requests": len(insts), "iters": it, "launches": {
+        k: v for k, v in launches.items() if v}, "wall_s": wall,
+        "syncs_in_requests": syncs, "latency_s": lat,
+        "ms_per_iter": ms, "phase17_ms_per_iter": phase17["ms_per_iter"],
+        "max_rel_cost_gap_to_single": gap,
+        "bit_identical_to_phase17": identical,
+        "bit_identical_in_process": in_process, "lane_order": order,
+        "codec": {"array_bytes": nbytes, "json_bytes": len(body),
+                  "encode_s": enc_s, "decode_s": dec_s}}
+    log(f"served bucket: {len(insts)} HTTP requests in one bucket, "
+        f"iters {it}, launches {out['launches']}; latency p50 "
+        f"{lat.get('p50')} s, p99 {lat.get('p99')} s; {ms} ms/iteration "
+        f"(median of the requests' p50) against phase 17's "
+        f"{phase17['ms_per_iter']}; largest relative cost gap to the single "
+        f"solves {gap:.3e}; bit-identical to solve_many in process on the "
+        f"same host arrays in the served lane order {order}; "
+        f"to phase 17's bucket: {identical}; host syncs over the whole "
+        f"exchange "
+        f"{syncs} (torch sync debug mode, every thread: the client's "
+        f"copies off the card, the setup, the chunks, the results)")
+
+    drills = {}
+    workdir = ROOT / "build" / "chip_smoke_drill"
+    for name, run in drill.SCENARIOS.items():
+        kwargs = {"workdir": str(workdir)} \
+            if name == "kill-and-restart" else {}
+        shutil.rmtree(workdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        try:
+            detail = run(device="cuda", **kwargs)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        drills[name] = {"seconds": time.perf_counter() - t0,
+                        "counters": detail["counters"]}
+        log(f"drill {name}: ok in {drills[name]['seconds']:.2f} s "
+            f"({ {k: v for k, v in detail['counters'].items() if v} })")
+    out["drills"] = drills
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -2157,6 +2542,18 @@ def main() -> int:
                                      report["main_path"]["ms_per_iter"])
     log("== buckets of completions and SCDL (solve_many)")
     report["buckets"].update(bucket_completion_scdl_phase(torch))
+    log("== supervision on the main path (resilience)")
+    t0 = time.perf_counter()
+    report["supervision"] = supervision_phase(
+        torch, report["main_path"]["ms_per_iter"])
+    report["supervision"]["seconds"] = time.perf_counter() - t0
+    log("== serving on the card (HTTP, one bucket; the drills)")
+    t0 = time.perf_counter()
+    report["serving"] = serving_phase(torch, dict(
+        PHASE17, setup_launches=report["buckets"]["sparse"]["setup_launches"],
+        ms_per_iter=report["buckets"]["sparse"]["ms_per_iter"]))
+    report["serving"]["seconds"] = time.perf_counter() - t0
+    PHASE17.clear()
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
@@ -2200,6 +2597,14 @@ def main() -> int:
         f"({COMP_N}, {COMP_P}); host syncs per chunk "
         f"{report['lowrank_path']['syncs_per_chunk']} and "
         f"{report['completion']['syncs_per_chunk']}")
+    sv, sr = report["supervision"], report["serving"]
+    log(f"supervision: {sv['ms_per_iter']} ms/iteration against "
+        f"{sv['plain_ms_per_iter']} unsupervised; faulted run lost "
+        f"{sv['faulted']['report']['wall_time_lost_s']} s; "
+        f"{sv['seconds']:.1f} s of phase 19. Serving: {sr['ms_per_iter']} "
+        f"ms/iteration for the served bucket against "
+        f"{sr['phase17_ms_per_iter']}, latency {sr['latency_s']}; "
+        f"{sr['seconds']:.1f} s of phase 20")
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")

@@ -26,9 +26,10 @@ which numpy cannot hold, are stored as their int16 bits with dtype
 ``"bfloat16"`` in the manifest.  A checkpoint written by the JAX package
 need not load here, nor the reverse.
 
-The JAX package's fault-injection points (``ckpt_write``,
-``ckpt_corrupt``) belong to the resilience layer, which the port has not
-taken over yet.
+Fault injection (``resilience.chaos``): ``ckpt_write`` raises at the top
+of :func:`save`, ``ckpt_corrupt`` truncates a leaf file after the
+manifest's checksums are written and before the rename — a torn write
+that validation must catch.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 
 from repro_torch.core import persistence
 from repro_torch.core.checks import label, leaves_with_path, structure
+from repro_torch.resilience import chaos as _chaos
 
 
 class CheckpointError(RuntimeError):
@@ -82,7 +84,8 @@ def _as_numpy(leaf) -> Tuple[np.ndarray, str]:
 def save(directory, step: int, tree, *, meta: Optional[dict] = None
          ) -> Path:
     """Synchronous atomic write of a host tree (a crc32 per leaf in the
-    manifest)."""
+    manifest; chaos fault points ``ckpt_write`` and ``ckpt_corrupt``)."""
+    _chaos.maybe_raise("ckpt_write", step=step)
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
@@ -101,6 +104,9 @@ def save(directory, step: int, tree, *, meta: Optional[dict] = None
             {"path": label(path), "shape": list(arr.shape), "dtype": dtype,
              "crc32": _crc32_file(fpath)})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
+    # a writer killed mid-flight: the damaged files are still renamed
+    # into place, the hazard validation guards against
+    _chaos.corrupt_checkpoint_files("ckpt_corrupt", tmp, step=step)
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)

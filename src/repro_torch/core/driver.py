@@ -25,8 +25,16 @@ checkpoints at its end).  Off, the checks add no operation and no sync.
 active mask, re-compaction, the ``cancel_instances`` control and the
 full-bucket checkpoint payload.  One host sync per chunk.
 
-Not ported yet, and refused loudly when asked for: ``resilience``
-(ROADMAP A11), with the batched driver's supervisor.
+Supervision (``RunOptions.resilience``, ``resilience.supervisor``):
+each chunk's start is pushed onto a ring of references, the dispatch is
+retried on transient faults, and a non-finite objective or state rolls
+the run back (ring first, then the newest valid checkpoint).  The state
+is judged by one device reduction that reaches the host with the
+chunk's costs, so a supervised chunk still syncs once.  Supervised runs
+always take the chunked loop (``chunk=1`` there runs the scan step of
+one iteration, the same math).  The chaos fault points ``dispatch``
+and ``carry_nan`` sit in both loops and in the batched driver; off,
+each costs one ``is None`` check.
 """
 from __future__ import annotations
 
@@ -46,11 +54,12 @@ from repro_torch.core.engine import (init_batched_cost_like,
                                      make_batched_scan_step,
                                      make_chunk_cost_step, make_scan_step,
                                      make_step, state_axes)
-
-# RunOptions fields of later slices: name -> (default, ROADMAP item)
-_LATER_FIELDS = {
-    "resilience": (None, "A11 (resilience)"),
-}
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.errors import DivergenceError
+from repro_torch.resilience.recovery import ResilienceConfig
+from repro_torch.resilience.supervisor import (BatchSupervisor, Supervisor,
+                                               finite_flag,
+                                               host_costs_and_flag)
 
 
 @dataclass(frozen=True)
@@ -67,10 +76,9 @@ class RunOptions:
     a bucket, ``{"cancel_instances": [j, ...]}`` freezes those instances).
     ``checkpoint_fn(state, i)`` is called every ``checkpoint_every``
     iterations; ``checks`` turns on the runtime checks (also through
-    ``REPRO_CHECKS`` in ``solve``).
-
-    ``resilience`` belongs to a later slice and raises
-    ``NotImplementedError`` when set.
+    ``REPRO_CHECKS`` in ``solve``); ``resilience`` supervises the run
+    (retry, divergence rollback, ``RecoveryReport``).  Off, checks and
+    supervision add no operation and no sync.
     """
     # run control
     max_iter: int = 300
@@ -82,7 +90,7 @@ class RunOptions:
     checkpoint_every: int = 0
     checkpoint_fn: Optional[Callable] = None
     checks: bool = False
-    resilience: Optional[object] = None
+    resilience: Optional[ResilienceConfig] = None
     progress_fn: Optional[Callable] = None
     # step wiring
     step_fn_light: Optional[Callable] = None
@@ -105,10 +113,6 @@ class RunOptions:
             raise ValueError(
                 f"chunk must be a positive int (iterations fused per "
                 f"dispatch), got {self.chunk!r}")
-        for name, (default, item) in _LATER_FIELDS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"RunOptions.{name} is not ported yet (ROADMAP {item})")
 
     def merged_with(self, **overrides) -> "RunOptions":
         """A copy with the non-None entries of ``overrides`` applied."""
@@ -199,6 +203,8 @@ class IterativeDriver:
                     f"not cost_every={options.cost_every!r}")
             self.cost_every = max(int(options.cost_every), 1)
         self.log = RunLog()
+        # the supervised run's RecoveryReport (None when unsupervised)
+        self.recovery = None
         self._steps: Dict[object, Callable] = {}
 
     # ------------------------------------------------------------ steps
@@ -282,22 +288,46 @@ class IterativeDriver:
     def run(self, start_iter: int = 0) -> Bundle:
         if self.checks:
             self._assert_contracts(start_iter)
-        if self.chunk == 1:
+        if self.chunk == 1 and self.options.resilience is None:
             return self._run_per_step(start_iter)
+        # supervised runs take the chunked loop: its chunk boundary is
+        # where snapshots, validation and rollback live
         return self._run_chunked(start_iter)
 
-    def _dispatch_chunk(self, data, rep, last, i: int, k: int):
-        """One K-iteration dispatch and its host sync."""
+    def _launch_chunk(self, data, rep, last, i: int, k: int):
+        """Enqueue one K-iteration dispatch; the ``dispatch`` fault point
+        fires before any of its work is enqueued."""
+        _chaos.maybe_raise("dispatch", step=i)
         step = self._scan_step(k)
         if self._cost_per_chunk or self._skips_cost:
             data, rep, last, trace = step(data, rep, i, last)
         else:
             data, rep, trace = step(data, rep, i)
+        return data, rep, last, trace
+
+    def _dispatch_chunk(self, data, rep, last, i: int, k: int):
+        """One K-iteration dispatch and its host sync."""
+        data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
         return data, rep, last, _host_costs(trace)
+
+    def _dispatch_supervised(self, data, rep, last, i: int, k: int):
+        """The supervised dispatch: the chunk, the ``carry_nan`` fault
+        point, and one transfer of the costs with the state's finite
+        flag."""
+        data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
+        if _chaos.is_active():
+            data = _chaos.poison_tree("carry_nan", data, step=i)
+        costs, finite = host_costs_and_flag(
+            trace, finite_flag({"data": data, "replicated": rep}))
+        return data, rep, last, costs, finite
 
     def _run_chunked(self, start_iter: int) -> Bundle:
         data, rep = self.bundle.data, self.bundle.replicated
         last = None                     # the +inf seed (engine.seed_like)
+        sup = None
+        if self.options.resilience is not None:
+            sup = Supervisor(self.options.resilience, self.bundle,
+                             start_iter=start_iter)
         ema = None
         seen_ks = set()
         i = start_iter
@@ -306,8 +336,23 @@ class IterativeDriver:
             first_call = k not in seen_ks
             seen_ks.add(k)
             t0 = time.perf_counter()
-            data, rep, last, costs = self._dispatch_chunk(
-                data, rep, last, i, k)
+            if sup is not None:
+                sup.begin_chunk(data, rep, last, i, len(self.log.costs))
+                try:
+                    data, rep, last, costs, finite = sup.dispatch(
+                        self._dispatch_supervised, data, rep, last, i, k)
+                    sup.validate(data, rep, costs, finite, i + k - 1)
+                except DivergenceError as e:
+                    sup.report.wall_time_lost_s += \
+                        time.perf_counter() - t0
+                    data, rep, last, i = sup.rollback(e, self.log)
+                    ema = None      # times across a rollback don't compare
+                    continue
+            else:
+                data, rep, last, costs = self._dispatch_chunk(
+                    data, rep, last, i, k)
+                if _chaos.is_active():
+                    data = _chaos.poison_tree("carry_nan", data, step=i)
             dt = time.perf_counter() - t0
             if self.checks:
                 _checks.assert_costs_finite(
@@ -344,6 +389,8 @@ class IterativeDriver:
             if conv:
                 break
         self.log.iters_run = (self.log.iters_run or 0) + (i - start_iter)
+        if sup is not None:
+            self.recovery = sup.finalize()
         return self.bundle.with_data(data, replicated=rep)
 
     def _run_per_step(self, start_iter: int) -> Bundle:
@@ -353,6 +400,8 @@ class IterativeDriver:
         n_done = 0
         for i in range(start_iter, self.max_iter):
             t0 = time.perf_counter()
+            if _chaos.is_active():  # unsupervised: a fault ends the run
+                _chaos.maybe_raise("dispatch", step=i)
             if self._skips_cost and i % self.cost_every != 0:
                 # off the cost grid: the objective-free step, the last
                 # evaluated cost carried forward
@@ -381,6 +430,8 @@ class IterativeDriver:
                 self.log.costs.append(cost_val)
                 if self.update_replicated is not None:
                     rep = self.update_replicated(rep, out)
+            if _chaos.is_active():
+                data = _chaos.poison_tree("carry_nan", data, step=i)
             if ema is not None and dt > self.straggler_factor * ema:
                 self.log.straggler_steps.append(i)
                 if self.checkpoint_fn is not None:
@@ -443,7 +494,10 @@ class BatchedDriver:
       retired lanes go to the host, the live ones are re-stacked on the
       device by ``index_select``;
     - checkpoints use the full-bucket layout (:meth:`snapshot_payload`),
-      so restoring does not depend on when compaction happened.
+      so restoring does not depend on when compaction happened;
+    - ``RunOptions.resilience`` wraps each chunk in the single driver's
+      retry and rollback discipline, its ring holding the bucket's
+      bookkeeping beside its state (``resilience.supervisor``).
 
     ``orig_indices`` maps each stacked row to its position in the
     caller's list of instances.  One host sync per chunk: the (K, B)
@@ -520,6 +574,8 @@ class BatchedDriver:
         self.logs = [RunLog(iters_run=0) for _ in range(B)]
         self.retired: Dict[int, Any] = {}    # row -> host instance state
         self._mask = None                    # (live rows, device mask)
+        self.recovery = None                 # the supervised run's report
+        self._iters_at_start = self.iters_run.copy()
         self._steps: Dict[int, Callable] = {}
 
     @property
@@ -569,11 +625,26 @@ class BatchedDriver:
             self._mask = (live.copy(), _on_device(live, self.device))
         return self._mask[1]
 
-    def _dispatch_chunk(self, i: int, k: int):
-        state, trace = self._scan_step(k)(self.state, self.shared,
-                                          self._device_mask(), i)
-        costs = trace["cost"] if isinstance(trace, dict) else trace
-        return state, costs.detach().cpu().numpy()   # the chunk's sync
+    def _launch_chunk(self, state, mask, i: int, k: int):
+        """Enqueue one chunk for the bucket (the ``dispatch`` fault point
+        first)."""
+        _chaos.maybe_raise("dispatch", step=i)
+        return self._scan_step(k)(state, self.shared, mask, i)
+
+    def _dispatch_chunk(self, state, mask, i: int, k: int):
+        state, trace = self._launch_chunk(state, mask, i, k)
+        return state, _host_costs(trace)             # the chunk's sync
+
+    def _dispatch_supervised(self, state, mask, i: int, k: int):
+        """The chunk, the ``carry_nan`` fault point, and one transfer of
+        the (K, B) costs with the state's finite flag."""
+        state, trace = self._launch_chunk(state, mask, i, k)
+        if _chaos.is_active():
+            state = dict(state, d=_chaos.poison_tree("carry_nan",
+                                                     state["d"], step=i))
+        costs, finite = host_costs_and_flag(
+            trace, finite_flag({"d": state["d"], "r": state["r"]}))
+        return state, costs, finite
 
     def _log_chunk(self, costs, dt: float, i: int, k: int) -> None:
         per = dt / max(k, 1)
@@ -691,16 +762,28 @@ class BatchedDriver:
                           "iters_run": self.iters_run.copy(),
                           "converged_at": self.converged_at.copy()}}
 
-    def load_payload(self, payload) -> None:
-        """Adopt a full-layout payload (a resume): fresh logs from the
-        restored boundary, as a single solve's resume has."""
+    def load_payload(self, payload, *, rewind_logs: bool = False) -> None:
+        """Adopt a full-layout payload: a resume (fresh logs from the
+        restored boundary, as a single solve's resume has) or a mid-run
+        rollback from disk (``rewind_logs=True`` cuts each lane's log back
+        to the iterations it had logged at the checkpoint)."""
         batch = payload["batch"]
         iters = np.asarray(batch["iters_run"], dtype=np.int64)
         conv = np.asarray(batch["converged_at"], dtype=np.int64)
-        self.logs = [RunLog(iters_run=int(iters[r]),
-                            converged_at=(int(conv[r]) if conv[r] >= 0
-                                          else None))
-                     for r in range(self.B0)]
+        if rewind_logs:
+            for row in range(self.B0):
+                n = int(max(iters[row] - self._iters_at_start[row], 0))
+                log = self.logs[row]
+                del log.costs[n:]
+                del log.times[n:]
+                log.iters_run = int(iters[row])
+                log.converged_at = (int(conv[row]) if conv[row] >= 0
+                                    else None)
+        else:
+            self.logs = [RunLog(iters_run=int(iters[r]),
+                                converged_at=(int(conv[r]) if conv[r] >= 0
+                                              else None))
+                         for r in range(self.B0)]
         self.active = np.asarray(batch["active"]).astype(bool)
         self.iters_run, self.converged_at = iters, conv
         self.slots = np.arange(self.B0, dtype=np.int64)
@@ -724,12 +807,33 @@ class BatchedDriver:
             _checks.assert_all_finite(
                 {"data": self.state["d"], "replicated": self.state["r"]},
                 "initial bucket state")
+        self._iters_at_start = self.iters_run.copy()
+        sup = None
+        if self.options.resilience is not None:
+            sup = BatchSupervisor(self.options.resilience, self)
         i = start_iter
         while i < self.max_iter and bool(self.active.any()):
             k = min(self.chunk, self.max_iter - i)
             t0 = time.perf_counter()
             live = self.active[self.slots]
-            self.state, costs = self._dispatch_chunk(i, k)
+            mask = self._device_mask()
+            if sup is not None:
+                sup.begin_chunk(i)
+                try:
+                    state, costs, finite = sup.dispatch(
+                        self._dispatch_supervised, self.state, mask, i, k)
+                    sup.validate(state, costs, finite, i + k - 1)
+                except DivergenceError as e:
+                    sup.report.wall_time_lost_s += \
+                        time.perf_counter() - t0
+                    i = sup.rollback(e)
+                    continue
+            else:
+                state, costs = self._dispatch_chunk(self.state, mask, i, k)
+                if _chaos.is_active():
+                    state = dict(state, d=_chaos.poison_tree(
+                        "carry_nan", state["d"], step=i))
+            self.state = state
             dt = time.perf_counter() - t0
             if self.checks:
                 _checks.assert_costs_finite(
@@ -749,4 +853,6 @@ class BatchedDriver:
                 if isinstance(ctl, dict):
                     self._apply_control(ctl, i - 1)
             self._maybe_recompact()
+        if sup is not None:
+            self.recovery = sup.finalize()
         return self

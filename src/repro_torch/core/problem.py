@@ -19,13 +19,14 @@ Workloads register under a string key (``@register("deconvolve")``) in
 the port's own registry; built-in workloads import lazily on first
 lookup.
 
-``solve`` takes the runtime checks (``checks=True`` or ``REPRO_CHECKS``)
-and checkpoints (``checkpoint_dir=``, ``checkpoint_every=``,
-``resume=``) as the JAX package does.  :func:`solve_many` runs many
-independent instances in buckets, one batched step per iteration for a
-whole bucket (``core.batching``, ``core.engine``).  Arguments of later
-slices (``mesh``, ``resilience``) raise ``NotImplementedError`` naming
-their ROADMAP item.
+``solve`` takes the runtime checks (``checks=True`` or ``REPRO_CHECKS``),
+checkpoints (``checkpoint_dir=``, ``checkpoint_every=``, ``resume=``)
+and supervision (``resilience=ResilienceConfig(...)``, with the
+``REPRO_CHAOS`` fault plan read for the run) as the JAX package does.
+:func:`solve_many` runs many independent instances in buckets, one
+batched step per iteration for a whole bucket (``core.batching``,
+``core.engine``).  ``mesh=`` belongs to a later slice and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ from repro_torch.core.bundle import Bundle, gather
 from repro_torch.core.driver import (BatchedDriver, IterativeDriver, RunLog,
                                      RunOptions)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.recovery import RecoveryReport
 
 
 class Problem:
@@ -123,6 +126,9 @@ class Solution:
     problem: Problem
     # the run's checkpoint writer (its spill and write times), if any
     checkpointer: Optional[ckpt.Checkpointer] = None
+    # what supervision did (resilience=); None for an unsupervised run.
+    # A bucket's instances share their bucket's report.
+    recovery: Optional[RecoveryReport] = None
 
     @property
     def costs(self):
@@ -366,6 +372,13 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
     exist) restores into the freshly built bundle and continues, the
     cost trajectory exactly where the checkpointed run left off.  The
     manifest's workload and config fingerprint must match.
+
+    Supervision: ``resilience=ResilienceConfig(...)`` retries transient
+    dispatch failures and rolls a diverged run back (its snapshot ring,
+    then the newest valid checkpoint: ``checkpoint_dir`` defaults to
+    this call's own); ``Solution.recovery`` reports what it did.
+    ``REPRO_CHAOS`` arms the fault plan for this run unless one is
+    already active.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -399,14 +412,27 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
                 writer.save_async(i + 1, persistence.spill_bundle(b))
 
             opts = replace(opts, checkpoint_fn=checkpoint_fn)
+    opts = _with_rollback_dir(opts, checkpoint_dir)
     driver = IterativeDriver(problem.full_step, bundle,
                              options=derive_options(problem, opts))
-    out = driver.run(start_iter=start_iter)
+    with _chaos.maybe_from_env():
+        out = driver.run(start_iter=start_iter)
     if writer is not None:
         writer.wait()       # the last write lands before the run is done
     x, aux = problem.finalize(out, driver.log)
     return Solution(x=x, aux=aux, log=driver.log, bundle=out,
-                    problem=problem, checkpointer=writer)
+                    problem=problem, checkpointer=writer,
+                    recovery=driver.recovery)
+
+
+def _with_rollback_dir(opts: RunOptions, directory) -> RunOptions:
+    """Point a supervised run's disk fallback at the run's own
+    checkpoints unless its ``ResilienceConfig`` names a directory."""
+    if opts.resilience is None or directory is None \
+            or opts.resilience.checkpoint_dir is not None:
+        return opts
+    return replace(opts, resilience=replace(
+        opts.resilience, checkpoint_dir=str(directory)))
 
 
 # --------------------------------------------------------------------
@@ -436,6 +462,11 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
     bucket keys are deterministic, so ``resume=True`` (not a step)
     plans the same buckets and restores each from its newest intact
     step.
+
+    ``resilience=`` supervises each bucket's chunks (retry, rollback
+    with the bucket's bookkeeping; the disk fallback reads the bucket's
+    own checkpoints); every instance of a bucket carries the bucket's
+    ``RecoveryReport``.
 
     Returns one :class:`Solution` per instance, unpadded, in input
     order.
@@ -483,9 +514,10 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
     _check_checkpoint_args(opts, checkpoint_dir, resume)
     dev = resolve_device(device)
     solutions: List[Optional[Solution]] = [None] * len(instances)
-    for bucket in plan:
-        _run_bucket(problem, bucket, instances, opts, dev, checkpoint_dir,
-                    resume, recompact_below, solutions)
+    with _chaos.maybe_from_env():
+        for bucket in plan:
+            _run_bucket(problem, bucket, instances, opts, dev,
+                        checkpoint_dir, resume, recompact_below, solutions)
     return solutions
 
 
@@ -542,6 +574,7 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
                 _writer.save_async(i + 1, payload)
 
             bopts = replace(bopts, checkpoint_fn=checkpoint_fn)
+    bopts = _with_rollback_dir(bopts, bdir)
     driver = BatchedDriver(problem.full_step, state, shared,
                            options=derive_options(problem, bopts),
                            data_axes=rec_axes,
@@ -583,4 +616,5 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
         log = driver.logs[row]
         x, aux = problem.finalize(b_inst, log)
         solutions[j] = Solution(x=x, aux=aux, log=log, bundle=b_inst,
-                                problem=problem, checkpointer=writer)
+                                problem=problem, checkpointer=writer,
+                                recovery=driver.recovery)

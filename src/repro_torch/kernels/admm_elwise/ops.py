@@ -14,7 +14,12 @@ from repro_torch.kernels.admm_elwise.kernel import admm_elwise_fwd
 from repro_torch.kernels.admm_elwise.ref import admm_elwise_ref
 
 
+# the chaos family (``kernel:admm_elwise``), the JAX package's name
+FAMILY = "admm_elwise"
+
+
 def admm_elwise(Wh, Wl, YZ, *, c1, c2, c3, t1, t2, use_kernel=None):
+    common.chaos_point(FAMILY, YZ)
     if use_kernel is None:
         use_kernel = common.on_card(YZ)
     if not use_kernel:

@@ -11,7 +11,10 @@ happens at the first kernel launch in a process, never at import: the
 CPU tests import every module on hosts that have no ``nvcc``.
 
 There is deliberately no fallback: a CUDA tensor either launches its
-kernel or raises.  Each C entry point returns ``cudaGetLastError()``
+kernel or raises.  The chaos point ``kernel:<family>``
+(:func:`chaos_point`, called by each ``ops.py`` wrapper before it
+chooses a route) raises there too: under supervision the chunk is
+retried on the same kernel, without it the run ends.  Each C entry point returns ``cudaGetLastError()``
 after its launch and :func:`check` turns anything other than
 ``cudaSuccess`` into a ``RuntimeError``.  Each wrapper keeps a plain
 integer launch counter (``<wrapper>.launches``) that it increments
@@ -32,6 +35,8 @@ from typing import Union
 
 import numpy as np
 import torch
+
+from repro_torch.resilience import chaos as _chaos
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -68,6 +73,15 @@ _SIGNATURES = {
 # tensors, which carry shapes and dtypes only (the driver's contract checks
 # and its +inf seeds run a step on them; nothing is computed)
 PLAIN_DEVICES = ("cpu", "meta")
+
+
+def chaos_point(family: str, t: torch.Tensor) -> None:
+    """The ``kernel`` fault point of a wrapper of ``family``: raises
+    ``InjectedFault`` when a chaos plan schedules it.  ``meta`` tensors
+    (a contract check, a seed's structure) compute nothing and do not
+    count as calls."""
+    if _chaos.is_active() and t.device.type != "meta":
+        _chaos.maybe_raise("kernel", tag=family)
 
 
 def on_card(t: torch.Tensor) -> bool:

@@ -36,8 +36,13 @@ def _count(v, like) -> int:
     return n
 
 
+# the chaos family (``kernel:condat_elwise``), the JAX package's name
+FAMILY = "condat_elwise"
+
+
 def condat_primal(X, U_adj, grad, tau, *, with_xbar: bool = False,
                   use_kernel=None):
+    common.chaos_point(FAMILY, X)
     if use_kernel is None:
         use_kernel = common.on_card(X)
     if not use_kernel:
@@ -52,6 +57,7 @@ def condat_primal(X, U_adj, grad, tau, *, with_xbar: bool = False,
 
 
 def condat_dual(U, C_new, C_old, W, sig, *, use_kernel=None):
+    common.chaos_point(FAMILY, U)
     if use_kernel is None:
         use_kernel = common.on_card(U)
     if not use_kernel:

@@ -15,8 +15,13 @@ from repro_torch.kernels.dict_outer.ref import (dict_outer_pair_ref,
                                                 dict_outer_ref)
 
 
+# the chaos family (``kernel:dict_outer``), the JAX package's name
+FAMILY = "dict_outer"
+
+
 def dict_outer(S, W, *, use_kernel=None):
     """(S^T W, W^T W) for S (K, P), W (K, A)."""
+    common.chaos_point(FAMILY, W)
     if use_kernel is None:
         use_kernel = common.on_card(W)
     if not use_kernel:
@@ -26,6 +31,7 @@ def dict_outer(S, W, *, use_kernel=None):
 
 def dict_outer_pair(Sh, Sl, Wh, Wl, *, use_kernel=None):
     """One pass over the coupled pair: (Sh^T Wh, Sl^T Wl, phi_h, phi_l)."""
+    common.chaos_point(FAMILY, Wh)
     if use_kernel is None:
         use_kernel = common.on_card(Wh)
     if not use_kernel:

@@ -13,9 +13,14 @@ from repro_torch.kernels.jacobi.kernel import eigh_fwd, svd_fwd
 from repro_torch.kernels.jacobi.ref import eigh_ref, svd_ref
 
 
+# the chaos family (``kernel:jacobi``; the port's own kernels)
+FAMILY = "jacobi"
+
+
 def eigh(A, *, compute_v: bool = True, use_kernel=None):
     """(w, V) of symmetric (..., r, r) A, w ascending; w alone without
     ``compute_v`` (the ``eigvalsh`` form)."""
+    common.chaos_point(FAMILY, A)
     if use_kernel is None:
         use_kernel = common.on_card(A)
     if not use_kernel:
@@ -25,6 +30,7 @@ def eigh(A, *, compute_v: bool = True, use_kernel=None):
 
 def svd(R, *, use_kernel=None):
     """(U, s, Vh) of square (..., r, r) R, s descending."""
+    common.chaos_point(FAMILY, R)
     if use_kernel is None:
         use_kernel = common.on_card(R)
     if not use_kernel:

@@ -25,7 +25,12 @@ from repro_torch.kernels.starlet2d.ref import (adjoint_ref, cascade,
                                                forward_ref, smooth_ref)
 
 
+# the chaos family (``kernel:starlet2d``), the JAX package's name
+FAMILY = "starlet2d"
+
+
 def _kernel(t, use_kernel) -> bool:
+    common.chaos_point(FAMILY, t)
     return common.on_card(t) if use_kernel is None else use_kernel
 
 

@@ -27,6 +27,7 @@ from repro_torch.convert import bundle_from_numpy, bundle_to_numpy
 from repro_torch.core.problem import solve
 from repro_torch.imaging import deconvolve
 from repro_torch.imaging.condat import SolverConfig
+from repro_torch.resilience.recovery import ResilienceConfig
 from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
                                                       condat_primal_fwd)
 from repro_torch.kernels.starlet2d.kernel import smooth_fwd
@@ -211,10 +212,16 @@ def test_solve_without_cuda_raises(case):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "A13"),
-    (dict(resilience=object()), "A11"),
+    (dict(resilience=ResilienceConfig()), "A11"),
 ])
 def test_later_slice_options_raise(case, kwargs, item):
+    """``mesh=`` (A13) still raises, naming its ROADMAP item; A11 is in,
+    so ``resilience=`` is accepted and its report comes back clean."""
     Y, P, _ = case
+    if item == "A11":
+        sol = solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
+        assert sol.recovery is not None and sol.recovery.faults == []
+        return
     with pytest.raises(NotImplementedError, match=item):
         solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
 

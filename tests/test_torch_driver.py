@@ -19,6 +19,7 @@ from repro.core.bundle import Bundle as JBundle
 from repro_torch.core import engine, problem
 from repro_torch.core.bundle import Bundle
 from repro_torch.core.driver import IterativeDriver, RunOptions
+from repro_torch.resilience.recovery import ResilienceConfig
 
 torch.set_num_threads(2)
 
@@ -123,8 +124,12 @@ def test_run_options_validation():
         RunOptions(cost_every="sometimes")
     with pytest.raises(ValueError, match="chunk"):
         RunOptions(chunk=0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        RunOptions(resilience=object())
+    # resilience (ROADMAP A11) is run control now; the ring must hold one
+    # snapshot at least
+    cfg = ResilienceConfig(max_retries=1)
+    assert RunOptions(resilience=cfg).resilience is cfg
+    with pytest.raises(ValueError, match="ring"):
+        ResilienceConfig(ring=0)
 
 
 @pytest.mark.parametrize("name,value", [("checkpoint_every", 5),

@@ -5,7 +5,10 @@ Two guards: a fresh interpreter imports every module of the port (and
 the smoke script) and then finds no ``jax``, ``jaxlib`` or ``repro``
 module loaded; and a scan of the sources finds no such import statement
 or ``import_module`` call, including in functions that the first guard
-never runs.
+never runs.  The resilience and serving modules, whose command-line
+entry points (``python -m repro_torch.resilience.chaos``, ``python -m
+repro_torch.serve.drill``) make their own data, are among those the
+first guard imports.
 """
 import ast
 import os
@@ -84,3 +87,42 @@ def test_port_has_its_own_kernel_sources():
         assert (PORT / "csrc" / source).is_file()
         for part in ("ref.py", "kernel.py", "ops.py"):
             assert (PORT / "kernels" / family / part).is_file()
+
+
+PLATFORM_MODULES = (
+    "repro_torch.resilience", "repro_torch.resilience.chaos",
+    "repro_torch.resilience.errors", "repro_torch.resilience.recovery",
+    "repro_torch.resilience.supervisor", "repro_torch.serve",
+    "repro_torch.serve.breaker", "repro_torch.serve.client",
+    "repro_torch.serve.codec", "repro_torch.serve.drill",
+    "repro_torch.serve.journal", "repro_torch.serve.metrics",
+    "repro_torch.serve.server", "repro_torch.serve.service")
+
+_PLATFORM_PROBE = r"""
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or
+             m.startswith(("jax.", "jaxlib.", "repro.")))
+print(bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def platform_probe():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", _PLATFORM_PROBE,
+                           *PLATFORM_MODULES], capture_output=True,
+                          text=True, env=env, cwd=str(ROOT), timeout=120)
+
+
+@pytest.mark.parametrize("module", PLATFORM_MODULES)
+def test_platform_modules_load_no_jax(module, platform_probe):
+    """Each resilience and serving module exists as a source of the port
+    and imports (with the others) without JAX or the JAX package."""
+    path = PORT.joinpath(*module.split(".")[1:])
+    assert path.with_suffix(".py").is_file() or \
+        (path / "__init__.py").is_file()
+    assert platform_probe.returncode == 0, platform_probe.stderr
+    assert platform_probe.stdout.strip() == "[]"

@@ -1,8 +1,8 @@
 """``repro_torch.core.problem.solve_many``: buckets of instances, one
 batched step per iteration for a whole bucket.
 
-Follows ``tests/test_solve_many.py`` (all but its chaos drill, which
-needs the resilience layer, ROADMAP A11).  Against the JAX package's
+Follows ``tests/test_solve_many.py`` (its chaos drill is in
+``tests/test_torch_resilience.py``).  Against the JAX package's
 ``solve_many``: the deconvolution at all three cadences on the reference's
 own fixture, and SCDL, each instance carrying the JAX package's random
 draws (it draws from fixed keys over each instance's own shape; the port
@@ -36,6 +36,7 @@ from repro_torch.imaging import psf
 from repro_torch.imaging.condat import SolverConfig
 from repro_torch.imaging.lowrank import CompletionConfig
 from repro_torch.imaging.scdl import SCDLConfig
+from repro_torch.resilience.recovery import ResilienceConfig
 
 torch.set_num_threads(2)
 
@@ -385,9 +386,18 @@ def test_run_options_rejects_unknown_cost_every_string():
         RunOptions(max_iter=4, cost_every="sometimes")
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(mesh=object()), "A13"),
-                                         (dict(resilience=object()), "A11")])
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(mesh=object()), "A13"),
+    (dict(resilience=ResilienceConfig()), "A11")])
 def test_later_slice_options_raise(psf_instances, kwargs, item):
+    """``mesh=`` (A13) still raises; ``resilience=`` (A11) is accepted,
+    every instance carrying its bucket's clean report."""
+    if item == "A11":
+        sols = solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
+                          device="cpu", chunk=CHUNK, **kwargs)
+        assert all(s.recovery is not None and s.recovery.faults == []
+                   for s in sols)
+        return
     with pytest.raises(NotImplementedError, match=item):
         solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
                    device="cpu", **kwargs)

@@ -114,6 +114,23 @@ prints its final line):
     iteration beside phase 17's; then the three drills of
     ``repro_torch.serve.drill`` on the card.
 
+21. multi-device: (a) a one-rank NCCL process group in this process
+    (a ``FileStore`` under ``build/phase21/``) and a (data=1) mesh;
+    phases 4, 12, 8 and 14's paths (the completion at r = 64) each with
+    ``mesh=`` against the same call without: costs and iterate
+    bit-identical, one host sync per chunk, the same kernel launches;
+    ms per iteration beside the meshless run, collectives per iteration,
+    and their device time in one more chunk under torch.profiler.
+    (b) four gloo ranks time-sharing the card (this script run with
+    ``--mesh-rank``, each on cuda:0, a timeout on every one): phase 4's
+    sparse deconvolution (2 500 stamps a rank) and phase 8's SCDL
+    (10 000 samples a rank) against the single-process solves of (a):
+    deconvolution costs and iterate rtol 1e-4 with equal ``iters_run``,
+    SCDL costs rtol 5e-3 (tests/test_distributed.py:85); the replicated
+    state, costs and results bit for bit across the ranks; the gaps,
+    host syncs (gloo syncs: reported) and times reported, labelled as
+    four processes sharing one card.
+
 Phases 3 and 6 also hold the Condat passes with a step size per
 instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
 bf16; each instance of a batch bit-identical to its own call) and time
@@ -2437,6 +2454,384 @@ def serving_phase(torch, phase17):
     return out
 
 
+# ----------------------------------------------------------------- 21
+# multi-device: (a) NCCL at world size 1 in this process, (b) four gloo
+# ranks sharing the card (subprocesses of this script, --mesh-rank)
+MESH_DIR = ROOT / "build" / "phase21"
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600
+MESH_PATHS = ("sparse", "lowrank", "scdl", "completion")
+MESH_CHUNK = {"sparse": MAIN_CHUNK, "lowrank": LR_CHUNK,
+              "scdl": SCDL_CHUNK, "completion": LR_CHUNK}
+# phase 21(b) against the single-process solve on the card: the
+# reference's own bounds (tests/test_solve_many.py for the
+# deconvolution, tests/test_distributed.py:85 for SCDL's costs)
+MESH_DECONV_TOL = dict(rtol=1e-4, atol=1e-6)
+MESH_SCDL_RTOL = 5e-3
+NCCL_PARTS = (("nccl", ("nccl", "Nccl")),)
+
+
+def mesh_inputs(torch, name):
+    """The inputs of the path ``name`` (phase 4, 12, 8 and 14's)."""
+    if name in ("sparse", "lowrank"):
+        from repro_torch.imaging.psf import simulate
+        data = simulate(MAIN_N, torch.Generator().manual_seed(42),
+                        stamp=STAMP)
+        return data.Y, data.psfs
+    if name == "scdl":
+        from repro_torch.data.synthetic import coupled_patches
+        return coupled_patches(SCDL_K, SCDL_P, SCDL_M, SCDL_A,
+                               torch.Generator().manual_seed(12))
+    return completion_data(torch, COMP_N, COMP_P, 31, "cuda")
+
+
+def mesh_solve(name, inputs, mesh, progress=None):
+    """The path ``name`` as its phase runs it, under ``mesh`` (or
+    none)."""
+    from repro_torch.core.problem import solve
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.lowrank import CompletionConfig
+    from repro_torch.imaging.scdl import SCDLConfig
+    kw = dict(mesh=mesh, progress_fn=progress, cost_every="chunk",
+              chunk=MESH_CHUNK[name])
+    if name == "sparse":
+        return solve("deconvolve", *inputs, cfg=SolverConfig(
+            mode="sparse", n_scales=SCALES), max_iter=MAIN_ITERS, tol=1e-5,
+            **kw)
+    if name == "lowrank":
+        return solve("deconvolve", *inputs, cfg=SolverConfig(
+            mode="lowrank", n_scales=SCALES, lam=LR_LAM, rank=LR_RANK),
+            max_iter=LR_ITERS, tol=0.0, **kw)
+    if name == "scdl":
+        return solve("scdl", *inputs, cfg=SCDLConfig(
+            n_atoms=SCDL_A, max_iter=SCDL_ITERS), max_iter=SCDL_ITERS, **kw)
+    return solve("lowrank", *inputs, cfg=CompletionConfig(
+        rank=12, oversample=52, lam=0.2, step=0.9), max_iter=LR_ITERS,
+        tol=0.0, **kw)
+
+
+def mesh_ms(sol, name):
+    """Median ms per iteration over the chunks after the first."""
+    k = MESH_CHUNK[name]
+    return statistics.median(t * 1e3 for t in sol.log.times[k::k])
+
+
+def _xs(sol):
+    return sol.x if isinstance(sol.x, tuple) else (sol.x,)
+
+
+def mesh_nccl_profile(torch, sol, name):
+    """One more chunk of the mesh path under torch.profiler: the device
+    time of the collectives (NCCL kernels) in it."""
+    from repro_torch.core.engine import make_chunk_cost_step
+    problem, b = sol.problem, sol.bundle
+    k = MESH_CHUNK[name]
+    step = make_chunk_cost_step(
+        problem.light_step, problem.cost, chunk=k,
+        update_replicated=problem._declared("refresh_replicated"),
+        axes=b.axes)
+    state = {"d": b.data, "r": b.replicated}
+
+    def body():
+        state["d"], state["r"], _, _ = step(state["d"], state["r"], 0, None)
+
+    return profile_window(torch, body, k, NCCL_PARTS)
+
+
+def mesh_plain_entry(sol, name, inputs):
+    """What the multi-rank runs are held against: a single-process
+    solve's costs, iterate, time and (host) inputs."""
+    import numpy as np
+    return {"costs": sol.log.costs, "iters": sol.log.iters_run,
+            "x": tuple(np.array(a) for a in _xs(sol)),
+            "ms_per_iter": mesh_ms(sol, name),
+            "inputs": tuple(t.cpu().numpy() for t in inputs)}
+
+
+def mesh_plain(torch, names):
+    """The single-process solves of ``names`` on this card."""
+    out = {}
+    for name in names:
+        inputs = mesh_inputs(torch, name)
+        out[name] = mesh_plain_entry(mesh_solve(name, inputs, None), name,
+                                     inputs)
+        log(f"single process {name}: {out[name]['ms_per_iter']} "
+            f"ms/iteration, iters {out[name]['iters']}")
+    return out
+
+
+def mesh_nccl_phase(torch):
+    """21(a): NCCL at world size 1 in this process, at full width: each
+    path with ``mesh=`` against the same call without, bit for bit, one
+    host sync per chunk, the same kernel launches."""
+    import shutil
+    from datetime import timedelta
+    import inspect
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core.compat import COLLECTIVES
+    from repro_torch.launch.mesh import make_mesh
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    init = dict(rank=0, world_size=1, timeout=timedelta(seconds=300),
+                store=dist.FileStore(str(MESH_DIR / "store_nccl"), 1))
+    if "device_id" in inspect.signature(dist.init_process_group).parameters:
+        init["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group("nccl", **init)
+    out, plain = {}, {}
+    try:
+        mesh = make_mesh((1,), ("data",))
+        log(f"mesh: {mesh}, backend {dist.get_backend()}")
+        for name in MESH_PATHS:
+            inputs = mesh_inputs(torch, name)
+            torch.cuda.synchronize()
+            # launches at each chunk's end: those of the iterations after
+            # the first chunk, apart from the setup's (whose starlet norm
+            # is cached after a first solve)
+            marks = {"ref": [], "mesh": []}
+
+            def mark(key, progress=None):
+                def event(e):
+                    marks[key].append(read_launches())
+                    if progress is not None:
+                        progress(e)
+                return event
+
+            reset_launches()
+            ref = mesh_solve(name, inputs, None, mark("ref"))
+            reset_launches()
+            c0 = COLLECTIVES["launches"]
+            sol, wall, syncs = run_counting_syncs(
+                torch, lambda progress: mesh_solve(name, inputs, mesh,
+                                                   mark("mesh", progress)))
+            launches, ref_launches = (
+                {k: m[-1][k] - m[0][k] for k in m[0]}
+                for m in (marks["mesh"], marks["ref"]))
+            it = sol.log.iters_run
+            nccl = (COLLECTIVES["launches"] - c0) / it
+            same = (sol.log.costs == ref.log.costs and all(
+                np.array_equal(a, b) for a, b in zip(_xs(sol), _xs(ref))))
+            prof = mesh_nccl_profile(torch, sol, name)
+            k = MESH_CHUNK[name]
+            nccl_ms = prof["device_ms_per_iter_by_part"]["nccl"] * k
+            row = {"iters_run": it, "bit_identical": same,
+                   "syncs_per_chunk": syncs,
+                   "launches_after_chunk1": launches,
+                   "launches_after_chunk1_meshless": ref_launches,
+                   "ms_per_iter": mesh_ms(sol, name),
+                   "ms_per_iter_meshless": mesh_ms(ref, name),
+                   "nccl_launches_per_iter": nccl,
+                   "nccl_device_ms_per_chunk": nccl_ms,
+                   "profile": prof, "wall_s": wall}
+            log(f"mesh (1,) nccl {name}: iters {it}, bit-identical to the "
+                f"meshless run {same}; {row['ms_per_iter']} ms/iteration "
+                f"(meshless {row['ms_per_iter_meshless']}); host syncs per "
+                f"chunk {syncs}; kernel launches after the first chunk "
+                f"{ {k: v for k, v in launches.items() if v} } (meshless "
+                f"the same); NCCL launches per iteration {nccl:.4g}; "
+                f"NCCL device time in one chunk of {k}: {nccl_ms:.6f} ms; "
+                f"profile {json.dumps(prof)}")
+            if not same or it != ref.log.iters_run:
+                raise AssertionError(f"mesh {name}: not bit-identical to "
+                                     f"the meshless run")
+            if syncs != 1:
+                raise AssertionError(f"mesh {name}: {syncs} host syncs per "
+                                     f"chunk, expected 1")
+            if launches != ref_launches or not any(launches.values()):
+                raise AssertionError(f"mesh {name}: launches after the "
+                                     f"first chunk {launches} != meshless "
+                                     f"{ref_launches}")
+            if name in ("sparse", "scdl"):
+                plain[name] = mesh_plain_entry(ref, name, inputs)
+            out[name] = row
+            del ref, sol, inputs
+    finally:
+        dist.destroy_process_group()
+    return out, plain
+
+
+def mesh_rank_main(rank: int, size: int, out: Path,
+                   backend: str = "gloo") -> None:
+    """One rank of a multi-rank world under a (size,) mesh, on every path
+    whose inputs lie in ``out``: with gloo over the card's tensors, every
+    rank on the one card (21(b)); with NCCL, rank r on card r
+    (``tools/mesh_phase.py --cards``)."""
+    import hashlib
+    import pickle
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's cores shared by the ranks
+    torch.set_num_threads(2)
+    init = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        init["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        backend, rank=rank, world_size=size, timeout=timedelta(seconds=300),
+        store=dist.FileStore(str(out / f"store_{backend}"), size), **init)
+    try:
+        mesh = make_mesh((size,), ("data",), device="cuda")
+        res = {}
+        for name in (n for n in MESH_PATHS
+                     if (out / f"{n}_0.npy").exists()):
+            inputs = tuple(np.load(out / f"{name}_{i}.npy") for i in (0, 1))
+            sol, wall, syncs = run_counting_syncs(
+                torch, lambda progress: mesh_solve(name, inputs, mesh,
+                                                   progress))
+
+            rep = {}
+            for k, v in sol.bundle.replicated.items():
+                for kk, t in (v.items() if isinstance(v, dict)
+                              else [("", v)]):
+                    rep[f"{k}.{kk}" if kk else k] = hashlib.sha256(
+                        t.detach().cpu().numpy().tobytes()).hexdigest()
+            res[name] = {
+                "costs": sol.log.costs, "iters": sol.log.iters_run,
+                "ms_per_iter": mesh_ms(sol, name), "syncs_per_chunk": syncs,
+                "wall_s": wall, "records": sol.bundle.record_range,
+                "x": _xs(sol) if rank == 0 else None,
+                "x_digest": [hashlib.sha256(a.tobytes()).hexdigest()
+                             for a in _xs(sol)],
+                "replicated_digest": rep}
+        (out / f"rank_{rank}.pkl").write_bytes(pickle.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_gloo_phase(torch, plain):
+    """21(b): four gloo ranks time-sharing the card, each a subprocess on
+    cuda:0 with the same full inputs: the sparse deconvolution (2 500
+    stamps a rank) and SCDL (10 000 samples a rank) against the
+    single-process solve on the card, the replicated state across ranks
+    bit for bit."""
+    return mesh_world_phase(torch, plain, "gloo", MESH_RANKS)
+
+
+def mesh_world_phase(torch, plain, backend, size):
+    """``size`` ranks (subprocesses of this script, a timeout on every
+    one) on the paths of ``plain``, each against its single-process
+    solve: the sparse deconvolution's costs and iterate at rtol 1e-4 with
+    equal ``iters_run``, the low-rank deconvolution's costs at rtol 1e-4,
+    SCDL's costs at rtol 5e-3, the completion's gaps reported; the
+    replicated state, costs and results bit for bit across ranks."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    where = (f"{size} processes time-sharing one card" if backend == "gloo"
+             else f"{size} ranks on {size} cards")
+    if backend != "gloo":
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+        MESH_DIR.mkdir(parents=True)
+    for name, p in plain.items():
+        for i, a in enumerate(p["inputs"]):
+            np.save(MESH_DIR / f"{name}_{i}.npy", a)
+    logs = [open(MESH_DIR / f"rank_{r}.log", "w") for r in range(size)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(size), str(MESH_DIR), backend], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=str(ROOT)) for r in range(size)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"mesh ranks: no end within "
+                             f"{MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    world_s = time.perf_counter() - t0
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {r: (MESH_DIR / f"rank_{r}.log").read_text()[-2000:]
+                 for r in bad}
+        raise AssertionError(f"mesh ranks {bad} failed: {tails}")
+    ranks = [pickle.loads((MESH_DIR / f"rank_{r}.pkl").read_bytes())
+             for r in range(size)]
+    out = {"world_s": world_s}
+    for name, p in plain.items():
+        got = ranks[0][name]
+        want_c = np.asarray(p["costs"])
+        got_c = np.asarray(got["costs"])
+        if got["iters"] != p["iters"] or got_c.shape != want_c.shape:
+            raise AssertionError(f"mesh ranks {name}: iters_run "
+                                 f"{got['iters']} != {p['iters']}")
+        fin = np.isfinite(want_c)
+        gap = float(np.max(np.abs(got_c[fin] - want_c[fin])
+                           / np.abs(want_c[fin])))
+        x_gap = max(float(np.max(np.abs(a - b)))
+                    for a, b in zip(got["x"], p["x"]))
+        bits = got_c.tolist() == want_c.tolist() and all(
+            np.array_equal(a, b) for a, b in zip(got["x"], p["x"]))
+        same_ranks = all(
+            r[name]["costs"] == got["costs"]
+            and r[name]["x_digest"] == got["x_digest"]
+            and r[name]["replicated_digest"] == got["replicated_digest"]
+            for r in ranks)
+        row = {"iters_run": got["iters"], "max_rel_cost_gap": gap,
+               "max_abs_iterate_gap": x_gap, "bit_identical": bits,
+               "ranks_bit_identical": same_ranks,
+               "records": [r[name]["records"] for r in ranks],
+               "syncs_per_chunk": [r[name]["syncs_per_chunk"]
+                                   for r in ranks],
+               "ms_per_iter": [r[name]["ms_per_iter"] for r in ranks],
+               "ms_per_iter_single_process": p["ms_per_iter"]}
+        log(f"mesh ({size},) {backend} {name}, {where}: "
+            f"iters {got['iters']}; largest relative cost gap {gap:.3g}, "
+            f"largest iterate gap {x_gap:.3g} against the single-process "
+            f"solve; bit-identical to it {bits}; replicated state, costs "
+            f"and results bit-identical across ranks {same_ranks}; records "
+            f"{row['records']}; host syncs per chunk "
+            f"{row['syncs_per_chunk']} (reported, not gated); "
+            f"ms/iteration "
+            f"{row['ms_per_iter']} (single process "
+            f"{row['ms_per_iter_single_process']})")
+        if name == "scdl":
+            # how far the dictionaries move anyway: the single process
+            # again with S_h one ulp up
+            S_h, S_l = p["inputs"]
+            nudged = mesh_solve(name, (np.nextafter(S_h, np.float32(np.inf)),
+                                       S_l), None)
+            row["nudge_dict_gap"] = max(
+                float(np.max(np.abs(np.asarray(a) - b)))
+                for a, b in zip(_xs(nudged), p["x"]))
+            log(f"mesh ({size},) {backend} scdl: S_h one ulp up moves the "
+                f"single-process dictionaries by {row['nudge_dict_gap']:.3g}"
+                f" (the four ranks' gap {x_gap:.3g})")
+            del nudged
+        if not same_ranks:
+            raise AssertionError(f"mesh ranks {name}: ranks disagree")
+        if name == "sparse":
+            np.testing.assert_allclose(got_c[fin], want_c[fin],
+                                       **MESH_DECONV_TOL)
+            np.testing.assert_allclose(got["x"][0], p["x"][0],
+                                       **MESH_DECONV_TOL)
+        elif name == "lowrank":
+            np.testing.assert_allclose(got_c[fin], want_c[fin],
+                                       rtol=MESH_DECONV_TOL["rtol"])
+        elif name == "scdl":
+            np.testing.assert_allclose(got_c, want_c, rtol=MESH_SCDL_RTOL)
+        out[name] = row
+    log(f"mesh ({size},) {backend} world: {world_s:.1f} s, {where}"
+        + (" (not a multi-GPU figure)" if backend == "gloo" else ""))
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -2554,6 +2949,13 @@ def main() -> int:
         ms_per_iter=report["buckets"]["sparse"]["ms_per_iter"]))
     report["serving"]["seconds"] = time.perf_counter() - t0
     PHASE17.clear()
+    log("== multi-device: NCCL at world size 1, full width (mesh=)")
+    t0 = time.perf_counter()
+    report["mesh"], mesh_plain = mesh_nccl_phase(torch)
+    log("== multi-device: four gloo ranks sharing the card")
+    report["mesh"]["gloo"] = mesh_gloo_phase(torch, mesh_plain)
+    report["mesh"]["seconds"] = time.perf_counter() - t0
+    del mesh_plain
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
@@ -2605,6 +3007,13 @@ def main() -> int:
         f"ms/iteration for the served bucket against "
         f"{sr['phase17_ms_per_iter']}, latency {sr['latency_s']}; "
         f"{sr['seconds']:.1f} s of phase 20")
+    mg = report["mesh"]
+    with_mesh = {k: mg[k]["ms_per_iter"] for k in MESH_PATHS}
+    meshless = {k: mg[k]["ms_per_iter_meshless"] for k in MESH_PATHS}
+    log(f"multi-device: NCCL (1,) ms/iteration {with_mesh} against "
+        f"meshless {meshless}; gloo "
+        f"(4,) sharing the card {mg['gloo']['world_s']:.1f} s; "
+        f"{mg['seconds']:.1f} s of phase 21")
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")
@@ -2617,4 +3026,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                       Path(sys.argv[4]), *sys.argv[5:6])
+        sys.exit(0)
     sys.exit(main())

@@ -12,10 +12,17 @@ on the CPU.  Tests pass ``device="cpu"``, where each kernel wrapper
 takes its plain PyTorch version (the ``ref.py`` beside it) because the
 tensor lies on the CPU.
 
-Ported so far: sparse space-variant PSF deconvolution,
-``solve("deconvolve", Y, psfs, cfg=SolverConfig(mode="sparse"))``
-(``imaging/deconvolve.py``), and sparse coupled dictionary learning for
+Ported so far: the three workloads of ``repro.problems``
+(``problems.list()``): space-variant PSF deconvolution in sparse and
+low-rank mode, ``solve("deconvolve", Y, psfs, cfg=SolverConfig(...))``
+(``imaging/deconvolve.py``), sparse coupled dictionary learning for
 super-resolution, ``solve("scdl", S_h, S_l, cfg=SCDLConfig(...))``
-(``imaging/scdl.py``).  Importing this package imports nothing
-heavy; ``repro_torch.core.problem.solve`` is the entry point.
+(``imaging/scdl.py``), and low-rank matrix completion,
+``solve("lowrank", Y, M, cfg=CompletionConfig(...))``
+(``imaging/lowrank.py``); around them the runtime checks, checkpoints,
+``solve_many`` buckets, supervision (``resilience/``), serving
+(``serve/``) and multi-device runs over ``torch.distributed``
+(``mesh=``, ``launch/mesh.py``, ``parallel/``).  Importing this package
+imports nothing heavy; ``repro_torch.core.problem.solve`` (or
+``repro_torch.problems.solve``) is the entry point.
 """

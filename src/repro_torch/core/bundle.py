@@ -1,28 +1,54 @@
-"""The bundled dataset on one device.
+"""The bundled dataset: k co-partitioned tensors plus broadcast state.
 
-Port of ``repro.core.bundle`` without the mesh: a ``Bundle`` is a flat
-dict of tensors that travel together through the iteration (noisy
-stamps, PSF spectra, primal and dual variables, weights) plus a dict of
-broadcast state (``replicated``: step sizes, dictionaries and the
-like).  A replicated entry is a tensor or one level of nested dict of
-tensors, as SCDL's solve factors ``Fh``/``Fl`` are (their keys name the
-factor regime, so they stay a dict rather than flattened names).
+Port of ``repro.core.bundle``.  A ``Bundle`` is a flat dict of tensors
+that travel together through the iteration (noisy stamps, PSF spectra,
+primal and dual variables, weights) plus a dict of broadcast state
+(``replicated``: step sizes, dictionaries and the like).  A replicated
+entry is a tensor or one level of nested dict of tensors, as SCDL's
+solve factors ``Fh``/``Fl`` are (their keys name the factor regime, so
+they stay a dict rather than flattened names).
 
 Every data leaf carries the same number of records.  The record axis
 is axis 0 unless ``record_axes`` names another: the deconvolution
 bundle keeps its per-scale leaves scale-major, (J, n, ...), with
 records on axis 1, so the kernels read each scale as one contiguous
 (n, S, S) block instead of copying a transposed view every iteration.
+
+The mesh half.  The JAX package shards each leaf's records over the
+mesh's data axes and runs the paper's map and reduce under
+``shard_map``.  The port runs one process per device: every rank calls
+``Bundle.create(..., mesh=)`` with the same full inputs and keeps its
+own contiguous block of records, cut on each leaf's own record axis
+(the scale-major leaves on axis 1), in the order of its rank along the
+axes (``("pod", "data")`` by default, those of them the mesh has).  The
+records must divide into the partitions.  :func:`bundle_map` applies a
+function to the rank's block, :func:`bundle_map_reduce` sums its
+partial results over the axes in one all-reduce, and :func:`gather`
+all-gathers each leaf along its record axis, so every rank holds the
+whole array, as ``jax.device_get`` of a sharded array gives.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import compat
+from repro_torch.core.compat import NO_AXES, Axes
 from repro_torch.kernels.common import resolve_device, to_device
+
+
+def _dp_axes(mesh, axes: Optional[Sequence[str]] = None) -> Tuple[str, ...]:
+    """The data-parallel axes of ``mesh``: ``axes`` (default
+    ``("pod", "data")``) restricted to the mesh's dimensions."""
+    if mesh is None:
+        return ()
+    if axes is None:
+        axes = ("pod", "data")
+    shape = compat.mesh_shape(mesh)
+    return tuple(a for a in axes if a in shape)
 
 
 def _copy_to(x: Any, device: torch.device) -> torch.Tensor:
@@ -50,28 +76,68 @@ def _rep_leaves(replicated: Mapping[str, Any]):
             yield k, v
 
 
+def _block(x: Any, axis: int, lo: int, hi: int) -> Any:
+    """Records ``[lo, hi)`` of ``x`` along ``axis`` (a view)."""
+    if isinstance(x, torch.Tensor):
+        return x.narrow(axis, lo, hi - lo)
+    x = np.asarray(x)
+    index = [slice(None)] * x.ndim
+    index[axis] = slice(lo, hi)
+    return x[tuple(index)]
+
+
 @dataclass
 class Bundle:
-    """Co-located record-wise tensors + broadcast state on one device."""
+    """Co-located record-wise tensors + broadcast state on one device,
+    this rank's block of records when ``mesh`` is set."""
     data: Dict[str, torch.Tensor]
     replicated: Dict[str, Any]
     device: torch.device
     record_axes: Mapping[str, int] = field(default_factory=dict)
+    mesh: Any = None
+    axes: Axes = NO_AXES
+    # every rank's records together, and where this rank's block starts
+    n_total: Optional[int] = None
+    record_start: int = 0
 
     @classmethod
     def create(cls, data: Mapping[str, Any], *,
                replicated: Optional[Mapping[str, Any]] = None,
                device=None,
-               record_axes: Optional[Mapping[str, int]] = None
+               record_axes: Optional[Mapping[str, int]] = None,
+               mesh=None, axes: Optional[Sequence[str]] = None
                ) -> "Bundle":
         """Copy ``data`` and ``replicated`` (numpy arrays or tensors)
         onto ``device`` (``None`` = ``"cuda"``) and check the record
-        invariant."""
+        invariant.  With ``mesh``, keep this rank's block of records
+        along ``axes`` (module docstring)."""
         dev = resolve_device(device)
-        b = cls(data={k: _copy_to(v, dev) for k, v in data.items()},
+        rec = dict(record_axes or {})
+        if mesh is not None and not compat.is_mesh(mesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(repro_torch.launch.mesh.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is over {mesh.device_type!r} "
+                             f"devices, the bundle on {dev}")
+        counts = {k: int(np.shape(v)[rec.get(k, 0)])
+                  for k, v in data.items()}
+        n = next(iter(counts.values()), 0)
+        for k, c in counts.items():
+            if c != n:
+                raise ValueError(f"bundle leaf {k!r} holds {c} records on "
+                                 f"axis {rec.get(k, 0)}, others {n}")
+        ax = compat.axes_of(mesh, _dp_axes(mesh, axes))
+        lo, hi = compat.block_range(n, ax)
+        if ax.size > 1:
+            data = {k: _block(v, rec.get(k, 0), lo, hi)
+                    for k, v in data.items()}
+        b = cls(data={k: _copy_to(v, dev).contiguous() if ax.size > 1
+                      else _copy_to(v, dev) for k, v in data.items()},
                 replicated={k: _copy_rep(v, dev)
                             for k, v in (replicated or {}).items()},
-                device=dev, record_axes=dict(record_axes or {}))
+                device=dev, record_axes=rec, mesh=mesh, axes=ax,
+                n_total=n, record_start=lo)
         b.validate()
         return b
 
@@ -80,9 +146,19 @@ class Bundle:
 
     @property
     def n_records(self) -> int:
+        """The records this rank holds."""
         for k, v in self.data.items():
             return int(v.shape[self.record_axis(k)])
         return 0
+
+    @property
+    def n_partitions(self) -> int:
+        return self.axes.size
+
+    @property
+    def record_range(self) -> Tuple[int, int]:
+        """This rank's records ``[lo, hi)`` among all ranks' records."""
+        return self.record_start, self.record_start + self.n_records
 
     def validate(self) -> None:
         """The bundle invariant: every leaf holds the same number of
@@ -102,10 +178,53 @@ class Bundle:
                   replicated: Any = "keep") -> "Bundle":
         rep = self.replicated if replicated == "keep" else replicated
         return Bundle(data=data, replicated=rep, device=self.device,
-                      record_axes=self.record_axes)
+                      record_axes=self.record_axes, mesh=self.mesh,
+                      axes=self.axes, n_total=self.n_total,
+                      record_start=self.record_start)
+
+    def zip(self, other: "Bundle") -> "Bundle":
+        """The paper's RDD.zip: one bundle of two co-partitioned ones
+        (their data keys must differ)."""
+        if other.n_records != self.n_records \
+                or other.record_range != self.record_range:
+            raise ValueError("zip requires equal record counts")
+        shared = set(self.data) & set(other.data)
+        if shared:
+            raise ValueError(f"zip: both bundles hold {sorted(shared)}")
+        out = self.with_data({**self.data, **other.data})
+        out.record_axes = {**self.record_axes, **other.record_axes}
+        return out
+
+
+def bundle_map(fn: Callable, bundle: Bundle, *,
+               has_replicated: bool = False) -> Bundle:
+    """map: ``fn(data)`` (or ``fn(data, replicated)``) on this rank's
+    block, no communication; ``fn`` keeps each leaf's record count."""
+    out = (fn(bundle.data, bundle.replicated) if has_replicated
+           else fn(bundle.data))
+    return bundle.with_data(out)
+
+
+def bundle_map_reduce(map_fn: Callable, bundle: Bundle, *,
+                      has_replicated: bool = False):
+    """map + reduce: ``map_fn``'s partial results (a tensor or a dict of
+    them) summed over the bundle's axes in one all-reduce, the same on
+    every rank."""
+    part = (map_fn(bundle.data, bundle.replicated) if has_replicated
+            else map_fn(bundle.data))
+    if isinstance(part, dict):
+        return compat.psum_tree(part, bundle.axes)
+    return compat.psum(part, bundle.axes)
+
+
+def gather_leaf(bundle: Bundle, key: str) -> np.ndarray:
+    """One data leaf, every rank's records, as a host array."""
+    x = compat.all_gather(bundle.data[key], bundle.axes,
+                          dim=bundle.record_axis(key))
+    return x.detach().cpu().numpy()
 
 
 def gather(bundle: Bundle) -> Dict[str, np.ndarray]:
-    """collect(): the bundle's data as host numpy arrays (in the
-    bundle's own layout)."""
-    return {k: v.detach().cpu().numpy() for k, v in bundle.data.items()}
+    """collect(): the bundle's data, every rank's records, as host numpy
+    arrays (in the bundle's own layout)."""
+    return {k: gather_leaf(bundle, k) for k in bundle.data}

@@ -46,8 +46,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import checks as _checks
+from repro_torch.core import compat
 from repro_torch.core import persistence as _persist
 from repro_torch.core.bundle import Bundle
+from repro_torch.core.compat import NO_AXES, Axes
 from repro_torch.core.engine import (init_batched_cost_like,
                                      init_batched_out_like,
                                      make_batched_chunk_cost_step,
@@ -214,14 +216,16 @@ class IterativeDriver:
             if self._cost_per_chunk:
                 self._steps[k] = make_chunk_cost_step(
                     self.step_fn_light, self.step_fn_cost, chunk=k,
-                    update_replicated=self.update_replicated)
+                    update_replicated=self.update_replicated,
+                    axes=self.bundle.axes)
             else:
                 self._steps[k] = make_scan_step(
                     self.step_fn, chunk=k,
                     update_replicated=self.update_replicated,
                     fn_light=self.step_fn_light,
                     cost_every=self.cost_every,
-                    light_updates_replicated=self.light_updates_replicated)
+                    light_updates_replicated=self.light_updates_replicated,
+                    axes=self.bundle.axes)
         return self._steps[k]
 
     @property
@@ -266,7 +270,8 @@ class IterativeDriver:
                                   "initial bundle state")
         what = "{} carry (meta tensors, before any dispatch)"
         if self.chunk == 1:
-            out = _checks.eval_step_spec(self.step_fn, data, rep, ())
+            out = _checks.eval_step_spec(self.step_fn, data, rep,
+                                         self.bundle.axes)
             _checks.assert_carry_stable(data, out[0],
                                         what.format("per-step data"))
             return
@@ -280,6 +285,13 @@ class IterativeDriver:
                 lambda d, r: step(d, r, start_iter), data, rep)
         _checks.assert_carry_stable((data, rep), (out[0], out[1]),
                                     what.format("chunked scan"))
+
+    @property
+    def _checkpoints_stragglers(self) -> bool:
+        """A straggling chunk checkpoints its state, except under a mesh:
+        each rank times its own chunks, and a step that one rank alone
+        writes is never complete."""
+        return self.checkpoint_fn is not None and not self.bundle.axes
 
     def _checkpoint(self, data, rep, i: int) -> None:
         self.checkpoint_fn(self.bundle.with_data(data, replicated=rep), i)
@@ -367,7 +379,7 @@ class IterativeDriver:
             if not first_call:
                 if ema is not None and dt > self.straggler_factor * ema:
                     self.log.straggler_steps.append(i)
-                    if self.checkpoint_fn is not None:
+                    if self._checkpoints_stragglers:
                         self._checkpoint(data, rep, i + k - 1)
                 ema = dt if ema is None else 0.9 * ema + 0.1 * dt
             # a chunk that crosses a multiple of the cadence checkpoints
@@ -395,7 +407,8 @@ class IterativeDriver:
 
     def _run_per_step(self, start_iter: int) -> Bundle:
         data, rep = self.bundle.data, self.bundle.replicated
-        step = make_step(self.step_fn)
+        axes = self.bundle.axes
+        step = make_step(self.step_fn, axes)
         ema = None
         n_done = 0
         for i in range(start_iter, self.max_iter):
@@ -406,11 +419,11 @@ class IterativeDriver:
                 # off the cost grid: the objective-free step, the last
                 # evaluated cost carried forward
                 if self.light_updates_replicated:
-                    data, aux = self.step_fn_light(data, rep, ())
+                    data, aux = self.step_fn_light(data, rep, axes)
                     if self.update_replicated is not None:
                         rep = self.update_replicated(rep, aux)
                 else:
-                    data = self.step_fn_light(data, rep, ())
+                    data = self.step_fn_light(data, rep, axes)
                 _sync(data)
                 dt = time.perf_counter() - t0
                 self.log.times.append(dt)
@@ -434,7 +447,7 @@ class IterativeDriver:
                 data = _chaos.poison_tree("carry_nan", data, step=i)
             if ema is not None and dt > self.straggler_factor * ema:
                 self.log.straggler_steps.append(i)
-                if self.checkpoint_fn is not None:
+                if self._checkpoints_stragglers:
                     self._checkpoint(data, rep, i)
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt
             if (self.checkpoint_every and self.checkpoint_fn is not None
@@ -500,15 +513,27 @@ class BatchedDriver:
       bookkeeping beside its state (``resilience.supervisor``).
 
     ``orig_indices`` maps each stacked row to its position in the
-    caller's list of instances.  One host sync per chunk: the (K, B)
-    cost trace.
+    caller's list of instances; ``-1`` marks a filler lane, inactive
+    from the start and never reported.  One host sync per chunk: the
+    (K, B) cost trace.
+
+    Under a mesh (``lane_axes``, the mesh's data axes) ``state`` holds
+    this rank's block of lanes and the bookkeeping covers every rank's:
+    the chunk's (K, B_local) costs are all-gathered before the one host
+    sync, so every rank logs every lane and takes the same convergence,
+    cancellation and re-compaction decisions.  Re-compaction keeps each
+    rank's lanes on that rank (no state moves between ranks): each keeps
+    its live lanes, padded with its frozen ones to the largest live
+    count of any rank.  Checkpoints hold the rank's rows of the full
+    layout (:meth:`payload_shard`), results are gathered to every rank.
     """
 
     def __init__(self, step_fn: Callable, state: Dict[str, Any],
                  shared: Optional[Dict[str, Any]] = None, *,
                  options: Optional[RunOptions] = None,
                  data_axes: Optional[Dict[str, int]] = None,
-                 orig_indices=None, recompact_below: float = 0.5):
+                 orig_indices=None, recompact_below: float = 0.5,
+                 lane_axes: Optional[Axes] = None):
         self.options = options = options or RunOptions()
         self.step_fn = step_fn
         self.step_fn_light = options.step_fn_light
@@ -557,7 +582,10 @@ class BatchedDriver:
         self.axes = state_axes(state, self.data_axes)
         k0, v0 = next(iter(state["d"].items()))
         self.device = v0.device
-        B = int(v0.shape[self.data_axes.get(k0, 0)])
+        self.lanes = lane_axes if lane_axes is not None else NO_AXES
+        # this rank's rows of the full layout, and every rank's
+        self.B0_local = int(v0.shape[self.data_axes.get(k0, 0)])
+        B = self.B0_local * self.lanes.size
         self.B0 = B
         self.orig = (np.asarray(orig_indices, dtype=np.int64)
                      if orig_indices is not None
@@ -568,7 +596,7 @@ class BatchedDriver:
         # bookkeeping in full-layout rows [0, B0); slots maps the current
         # compacted position s to its row
         self.slots = np.arange(B, dtype=np.int64)
-        self.active = np.ones(B, bool)
+        self.active = self.orig >= 0
         self.iters_run = np.zeros(B, np.int64)
         self.converged_at = np.full(B, -1, np.int64)
         self.logs = [RunLog(iters_run=0) for _ in range(B)]
@@ -614,11 +642,24 @@ class BatchedDriver:
         prev, cur = c[-w - 1], c[-1]
         return abs(prev - cur) <= self.tol * max(abs(prev), 1e-12)
 
+    @property
+    def lane_range(self):
+        """This rank's rows ``[lo, hi)`` of the full layout."""
+        lo = self.lanes.rank * self.B0_local
+        return lo, lo + self.B0_local
+
+    @property
+    def _local_slots(self) -> np.ndarray:
+        """The full-layout rows of this rank's current lanes (``slots``
+        lists every rank's, rank by rank, an equal count each)."""
+        m = len(self.slots) // self.lanes.size
+        return self.slots[self.lanes.rank * m:(self.lanes.rank + 1) * m]
+
     # -------------------------------------------------------- dispatch
     def _device_mask(self):
         """The (B,) mask of live lanes on the device, ``None`` when every
         lane is live (nothing to freeze); rebuilt only when it changes."""
-        live = self.active[self.slots]
+        live = self.active[self._local_slots]
         if live.all():
             return None
         if self._mask is None or not np.array_equal(self._mask[0], live):
@@ -633,7 +674,9 @@ class BatchedDriver:
 
     def _dispatch_chunk(self, state, mask, i: int, k: int):
         state, trace = self._launch_chunk(state, mask, i, k)
-        return state, _host_costs(trace)             # the chunk's sync
+        costs = trace["cost"] if isinstance(trace, dict) else trace
+        # every rank's lanes, then the chunk's sync
+        return state, _host_costs(compat.all_gather(costs, self.lanes, 1))
 
     def _dispatch_supervised(self, state, mask, i: int, k: int):
         """The chunk, the ``carry_nan`` fault point, and one transfer of
@@ -668,6 +711,8 @@ class BatchedDriver:
         inst = {}
         for row in self.slots:
             row = int(row)
+            if self.orig[row] < 0:
+                continue                            # a filler lane
             log = self.logs[row]
             inst[int(self.orig[row])] = {
                 "cost": (log.costs[-1] if log.costs else None),
@@ -683,7 +728,7 @@ class BatchedDriver:
         the named instances (caller's indices) as if converged; ``stop``
         cancels every live one."""
         if ctl.get("stop"):
-            targets = [int(j) for j in self.orig]
+            targets = [int(j) for j in self.orig if j >= 0]
         else:
             targets = [int(j) for j in (ctl.get("cancel_instances")
                                         or ())]
@@ -712,14 +757,27 @@ class BatchedDriver:
         B = len(self.slots)
         if n_act == 0 or n_act >= self.recompact_below * B:
             return
-        keep = np.flatnonzero(cur)
-        gone = np.flatnonzero(~cur)
+        # each rank keeps its live lanes, and frozen ones up to the
+        # largest live count of any rank (module docstring)
+        blocks = cur.reshape(self.lanes.size, -1)
+        m = int(blocks.sum(axis=1).max())
+        if m == blocks.shape[1]:
+            return
+        keeps = [np.sort(np.concatenate([
+            np.flatnonzero(live),
+            np.flatnonzero(~live)[:m - int(live.sum())]]))
+            for live in blocks]
+        keep = keeps[self.lanes.rank]
+        gone = np.setdiff1d(np.arange(blocks.shape[1]), keep)
+        mine = self._local_slots
         host = _persist.to_host(self._select(gone))
         for s, g in enumerate(gone):
-            self.retired[int(self.slots[g])] = _persist.slice_instance(
+            self.retired[int(mine[g])] = _persist.slice_instance(
                 host, s, self.axes)
         self.state = self._select(keep)
-        self.slots = self.slots[keep]
+        self.slots = np.concatenate([
+            block[k] for block, k in
+            zip(self.slots.reshape(self.lanes.size, -1), keeps)])
 
     # ------------------------------------------------------ checkpoints
     def payload_template(self) -> Dict[str, Any]:
@@ -728,7 +786,7 @@ class BatchedDriver:
         ``checkpoint.restore(..., like=..., device=...)``."""
         def full(x, a):
             shape = list(x.shape)
-            shape[a] = self.B0
+            shape[a] = self.B0_local
             return torch.empty(shape, dtype=x.dtype, device="meta")
 
         return {"state": _persist.map_with_axes(full, self.state,
@@ -737,26 +795,41 @@ class BatchedDriver:
                           "iters_run": np.zeros(self.B0, np.int64),
                           "converged_at": np.zeros(self.B0, np.int64)}}
 
+    def payload_shard(self) -> Dict[str, Any]:
+        """The checkpoint layout of :meth:`snapshot_payload`: this rank's
+        rows of the state's full layout (``checkpoint.save(shard=)``);
+        the bookkeeping, the same on every rank, is written whole."""
+        lo, hi = self.lane_range
+        return {"index": self.lanes.rank, "count": self.lanes.size,
+                "write": self.lanes.lead,
+                "records": {_checks.label(("state",) + path):
+                            [_persist._axis(self.axes, path), lo, hi,
+                             self.B0]
+                            for path, _ in _checks.leaves_with_path(
+                                self.state)}}
+
     def snapshot_payload(self) -> Dict[str, Any]:
-        """The full-bucket checkpoint payload: the state in B0 rows (the
-        compacted lanes scattered back on the device, the retired ones
-        from their host spills) and the per-instance bookkeeping.  The
-        state stays on the device; the checkpoint writer spills it."""
+        """The full-bucket checkpoint payload: the state in this rank's
+        rows of the full layout (the compacted lanes scattered back on
+        the device, the retired ones from their host spills) and the
+        per-instance bookkeeping.  The state stays on the device; the
+        checkpoint writer spills it."""
         state = self.state
+        lo, _ = self.lane_range
         if len(self.slots) != self.B0:
-            idx = _on_device(self.slots, self.device)
+            idx = _on_device(self._local_slots - lo, self.device)
 
             def scatter(x, a):
                 shape = list(x.shape)
-                shape[a] = self.B0
+                shape[a] = self.B0_local
                 return torch.zeros(shape, dtype=x.dtype,
                                    device=x.device).index_copy_(a, idx, x)
 
             state = _persist.map_with_axes(scatter, state, self.axes)
             for row, inst in self.retired.items():
                 _persist.set_instance(
-                    state, row, _persist.readmit_batched(self.device, inst),
-                    self.axes)
+                    state, row - lo,
+                    _persist.readmit_batched(self.device, inst), self.axes)
         return {"state": state,
                 "batch": {"active": self.active.copy(),
                           "iters_run": self.iters_run.copy(),
@@ -794,7 +867,15 @@ class BatchedDriver:
     # ---------------------------------------------------------- results
     def host_states(self) -> Dict[int, Any]:
         """Each row's final instance state on the host: live lanes
-        sliced out of the device state, retired ones from their spills."""
+        sliced out of the device state, retired ones from their spills;
+        under a mesh every rank's rows, gathered."""
+        if self.lanes:
+            full = _persist.map_with_axes(
+                lambda x, a: compat.all_gather(x, self.lanes, a),
+                self.snapshot_payload()["state"], self.axes)
+            host = _persist.to_host(full)
+            return {row: _persist.slice_instance(host, row, self.axes)
+                    for row in range(self.B0)}
         host = _persist.to_host(self.state)
         out = dict(self.retired)
         for s, row in enumerate(self.slots):

@@ -1,12 +1,12 @@
-"""Iteration engine on one device: K iterations per dispatch, one host
-sync per chunk.
+"""Iteration engine: K iterations per dispatch, one host sync per chunk.
 
-Port of the single-device half of ``repro.core.engine``.  A step is a
-plain function ``fn(data, replicated, axes) -> (data', out)`` over the
-bundle's dicts; ``axes`` is always ``()`` here (the port has no mesh
-yet, ROADMAP A13).  JAX fuses a chunk into one ``lax.scan`` program;
-the port runs the K iterations as a Python loop that only enqueues
-device work — every cost stays a 0-d device tensor and the chunk's
+Port of ``repro.core.engine``.  A step is a plain function ``fn(data,
+replicated, axes) -> (data', out)`` over the bundle's dicts; ``axes``
+is the bundle's ``core.compat.Axes`` (empty without a mesh), which the
+step sums its partial results over (``compat.psum``), as the JAX step
+psums over its mesh axes under ``shard_map``.  JAX fuses a chunk into
+one ``lax.scan`` program; the port runs the K iterations as a Python
+loop that only enqueues device work — every cost stays a 0-d device tensor and the chunk's
 ``(K,)`` trace is stacked on the device, so the driver syncs once per
 chunk when it reads the trace.
 
@@ -80,10 +80,10 @@ def _device_of(tree) -> torch.device:
     raise ValueError("an empty state has no device")
 
 
-def init_out_like(fn: Callable, data, rep):
+def init_out_like(fn: Callable, data, rep, axes=()):
     """The +inf seed of ``fn``'s reduced output, its structure taken by
     running ``fn`` once on ``meta`` tensors (no device work)."""
-    _, out = eval_step_spec(lambda d, r: fn(d, r, ()), data, rep)
+    _, out = eval_step_spec(lambda d, r: fn(d, r, axes), data, rep)
     return seed_like(out, _device_of(data))
 
 
@@ -95,10 +95,10 @@ def _stack_trace(entries):
     return torch.stack(entries)
 
 
-def make_step(fn: Callable):
+def make_step(fn: Callable, axes=()):
     """``step(data, rep) -> (data', out)``: one iteration of ``fn``."""
     def step(data, rep):
-        return fn(data, rep, ())
+        return fn(data, rep, axes)
     return step
 
 
@@ -106,8 +106,8 @@ def make_scan_step(fn: Callable, *, chunk: int = 8,
                    update_replicated: Optional[Callable] = None,
                    fn_light: Optional[Callable] = None,
                    cost_every: int = 1,
-                   light_updates_replicated: bool = False):
-    """K = ``chunk`` iterations of ``fn`` per call.
+                   light_updates_replicated: bool = False, axes=()):
+    """K = ``chunk`` iterations of ``fn`` per call, each given ``axes``.
 
     Returns ``step(data, rep, start) -> (data', rep', trace)``, or, when
     ``fn_light`` is given and ``cost_every > 1``, ``step(data, rep,
@@ -126,16 +126,16 @@ def make_scan_step(fn: Callable, *, chunk: int = 8,
             if use_light and i % cost_every != 0:
                 if last is None:
                     # a run that starts off the grid (a resume)
-                    last = init_out_like(fn, data, rep)
+                    last = init_out_like(fn, data, rep, axes)
                 if light_updates_replicated:
-                    data, aux = fn_light(data, rep, ())
+                    data, aux = fn_light(data, rep, axes)
                     out = {**last, **aux}
                     if update_replicated is not None:
                         rep = update_replicated(rep, out)
                 else:
-                    data, out = fn_light(data, rep, ()), last
+                    data, out = fn_light(data, rep, axes), last
             else:
-                data, out = fn(data, rep, ())
+                data, out = fn(data, rep, axes)
                 if update_replicated is not None:
                     rep = update_replicated(rep, out)
             last = out
@@ -154,7 +154,8 @@ def make_scan_step(fn: Callable, *, chunk: int = 8,
 
 def make_chunk_cost_step(fn_light: Callable, fn_cost: Callable, *,
                          chunk: int = 8,
-                         update_replicated: Optional[Callable] = None):
+                         update_replicated: Optional[Callable] = None,
+                         axes=()):
     """Chunk-granular objective: K cost-free iterations, then one
     objective evaluation on the chunk's final state.
 
@@ -167,11 +168,11 @@ def make_chunk_cost_step(fn_light: Callable, fn_cost: Callable, *,
     def step(data, rep, start, last=None):
         for _ in range(chunk):
             if update_replicated is None:
-                data = fn_light(data, rep, ())
+                data = fn_light(data, rep, axes)
             else:
-                data, aux = fn_light(data, rep, ())
+                data, aux = fn_light(data, rep, axes)
                 rep = update_replicated(rep, aux)
-        fresh = fn_cost(data, rep, ())
+        fresh = fn_cost(data, rep, axes)
         if last is None:
             last = seed_like(fresh)
 
@@ -199,7 +200,8 @@ def make_chunk_cost_step(fn_light: Callable, fn_cost: Callable, *,
 # leaf at axis 0.  ``data_axes`` names the data leaves whose instance
 # axis is not 0.  The bucket-shared replicated tree
 # (``BatchAxes.shared_in_batch``) rides beside the state and is read by
-# every instance.
+# every instance.  Under a mesh each rank runs its own block of lanes;
+# the steps get ``axes=()``, since instances never sum into each other.
 
 
 def _merge_rep(r, shared):

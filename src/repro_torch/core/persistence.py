@@ -27,8 +27,12 @@ rematerialises a step's intermediates with ``jax.checkpoint``.  Under
 so there is nothing to rematerialise: ``wrap_step`` returns the step
 unchanged for both policies.
 
-``bundle_shardings`` (the mesh layout of a checkpoint) waits for the
-multi-device slice (ROADMAP A13).
+Under a mesh each rank checkpoints its own block of records:
+:func:`bundle_shard` is the port's counterpart of ``bundle_shardings``,
+the layout ``checkpoint.save`` writes beside a payload (each record
+leaf's axis, the rank's range among all records) and
+``checkpoint.restore(records=)`` reads a block back from, under any
+number of ranks.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bundle import Bundle
-from repro_torch.core.checks import leaves_with_path
+from repro_torch.core.checks import label, leaves_with_path
 
 
 class Policy(enum.Enum):
@@ -149,6 +153,21 @@ def spill_bundle(bundle: Bundle) -> Dict[str, Any]:
     The leaves stay device tensors: the checkpoint writer spills them
     (:func:`spill_async`)."""
     return {"data": bundle.data, "replicated": bundle.replicated}
+
+
+def bundle_shard(bundle: Bundle) -> Dict[str, Any]:
+    """The checkpoint layout of :func:`spill_bundle`'s payload: this
+    rank's shard index among the bundle's partitions, whether it writes
+    (the first replica of its partition does), and for every data leaf
+    its record axis and the rank's records ``[lo, hi)`` of all of them.
+    Without a mesh: one shard of all the records."""
+    lo, hi = bundle.record_range
+    total = bundle.n_total if bundle.n_total is not None else hi
+    return {"index": bundle.axes.rank, "count": bundle.n_partitions,
+            "write": bundle.axes.lead,
+            "records": {label(("data", k)): [bundle.record_axis(k), lo, hi,
+                                             total]
+                        for k in bundle.data}}
 
 
 def readmit_replicated(bundle: Bundle, host_tree: Any) -> Any:

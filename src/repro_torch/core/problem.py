@@ -1,6 +1,6 @@
 """Declarative workload API: declare a ``Problem`` once, ``solve()`` it.
 
-Port of ``repro.core.problem`` for one device::
+Port of ``repro.core.problem``::
 
     class MyProblem(Problem):
         def init_bundle(self, inputs, device): ...   # configure + place
@@ -12,8 +12,10 @@ Port of ``repro.core.problem`` for one device::
 ``solve()`` derives the driver wiring — scan step or chunk-cost step,
 light and cost variants, broadcast updates — from which optional hooks
 the Problem declares (:func:`derive_options`, the same rules as the JAX
-package).  The port's ``init_bundle`` takes the target ``device`` where
-the JAX one takes a mesh.
+package).  The port's ``init_bundle`` takes the target ``device`` beside
+the mesh (``init_bundle(inputs, device, mesh=mesh)``, the keyword given
+only under a mesh, so a Problem that never runs under one may leave it
+out).
 
 Workloads register under a string key (``@register("deconvolve")``) in
 the port's own registry; built-in workloads import lazily on first
@@ -25,8 +27,19 @@ and supervision (``resilience=ResilienceConfig(...)``, with the
 ``REPRO_CHAOS`` fault plan read for the run) as the JAX package does.
 :func:`solve_many` runs many independent instances in buckets, one
 batched step per iteration for a whole bucket (``core.batching``,
-``core.engine``).  ``mesh=`` belongs to a later slice and raises
-``NotImplementedError`` naming its ROADMAP item.
+``core.engine``).
+
+``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_mesh``): every rank
+calls ``solve`` with the same full inputs, as the JAX call receives
+whole arrays; the Problem computes its setup from them and keeps the
+rank's block of records (``Bundle.create(mesh=)``), the steps sum their
+partial results over the mesh's data axes, and ``Solution.x`` is the
+whole result on every rank.  Checkpoints are written one shard per
+rank and restore under any number of ranks.  ``solve_many(mesh=)``
+splits each bucket's instances across the ranks instead (instances
+never sum into each other), with filler lanes when they do not divide.
+Supervision under a mesh (``resilience=`` with ``mesh=``) is not ported
+and raises, naming its ROADMAP item (A16).
 """
 from __future__ import annotations
 
@@ -39,11 +52,12 @@ from typing import (Any, Callable, ClassVar, Dict, List, Optional, Tuple,
                     Type, Union)
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.core import batching, checks, persistence
+from repro_torch.core import batching, checks, compat, engine, persistence
 from repro_torch.core.batching import BatchAxes
-from repro_torch.core.bundle import Bundle, gather
+from repro_torch.core.bundle import Bundle, _dp_axes, gather
 from repro_torch.core.driver import (BatchedDriver, IterativeDriver, RunLog,
                                      RunOptions)
 from repro_torch.kernels.common import resolve_device
@@ -56,9 +70,11 @@ class Problem:
 
     Required hooks:
 
-    - ``init_bundle(inputs, device) -> Bundle`` — configuration and
-      placement: build the bundle (and its broadcast side) on
-      ``device`` from the raw inputs.
+    - ``init_bundle(inputs, device[, mesh]) -> Bundle`` — configuration
+      and placement: build the bundle (and its broadcast side) on
+      ``device`` from the raw inputs; under a mesh (the keyword ``mesh``,
+      given only then) keep the rank's block of records, every setup
+      quantity computed from all of them.
     - ``full_step(d, rep, axes) -> (d', out)`` — one iteration; ``out``
       is a scalar cost or a dict with a ``"cost"`` entry.
 
@@ -86,7 +102,7 @@ class Problem:
     cost: Optional[Callable] = None
     refresh_replicated: Optional[Callable] = None
 
-    def init_bundle(self, inputs: Tuple, device) -> Bundle:
+    def init_bundle(self, inputs: Tuple, device, mesh=None) -> Bundle:
         raise NotImplementedError
 
     def full_step(self, d, rep, axes):
@@ -318,13 +334,33 @@ def _check_checkpoint_args(opts: RunOptions, checkpoint_dir, resume) -> None:
             "written")
 
 
+def _check_mesh(mesh, opts: RunOptions) -> None:
+    """``mesh=`` must be a mesh, and supervision does not run under one
+    yet."""
+    if mesh is None:
+        return
+    if not compat.is_mesh(mesh):
+        raise TypeError(f"mesh= must be a torch.distributed DeviceMesh "
+                        f"(repro_torch.launch.mesh.make_mesh), got "
+                        f"{type(mesh).__name__}")
+    if opts.resilience is not None:
+        raise NotImplementedError(
+            "resilience= under a mesh is not ported yet (ROADMAP A16, "
+            "supervision and serving under a mesh)")
+
+
+def _init_bundle(problem: Problem, inputs, device, mesh) -> Bundle:
+    if mesh is None:
+        return problem.init_bundle(tuple(inputs), device)
+    return problem.init_bundle(tuple(inputs), device, mesh=mesh)
+
+
 def _resume_step(checkpoint_dir, resume) -> int:
     """The step ``solve(resume=...)`` restores: an explicit step, which
     must exist, or the newest intact one."""
     latest = ckpt.latest_step(checkpoint_dir)
     if isinstance(resume, int) and not isinstance(resume, bool):
-        if not (Path(checkpoint_dir) / f"step_{resume:08d}"
-                / "manifest.json").exists():
+        if not (Path(checkpoint_dir) / f"step_{resume:08d}").is_dir():
             raise ValueError(f"no checkpoint for step {resume} under "
                              f"{str(checkpoint_dir)!r} (latest saved step: "
                              f"{latest})")
@@ -379,14 +415,17 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
     this call's own); ``Solution.recovery`` reports what it did.
     ``REPRO_CHAOS`` arms the fault plan for this run unless one is
     already active.
+
+    Under ``mesh=`` every rank makes this call with the same inputs and
+    gets the same ``Solution.x`` (module docstring); each writes its own
+    checkpoint shard, and a resume restores its block of records from
+    the shards of any number of ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP A13, multi-device)")
     problem = _as_problem(problem, cfg)
     opts = _resolved_options(problem, options, run_opts)
+    _check_mesh(mesh, opts)
     _check_checkpoint_args(opts, checkpoint_dir, resume)
-    bundle = problem.init_bundle(tuple(inputs), resolve_device(device))
+    bundle = _init_bundle(problem, inputs, resolve_device(device), mesh)
     start_iter = 0
     writer = None
     if checkpoint_dir is not None:
@@ -399,13 +438,16 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
             state, _ = ckpt.restore(
                 checkpoint_dir, step,
                 {"data": bundle.data, "replicated": bundle.replicated},
+                records=bundle.record_range,
                 expect_meta=lambda m: m.get("problem") == meta["problem"]
                 and m.get("config") == meta["config"])
             bundle = bundle.with_data(state["data"],
                                       replicated=state["replicated"])
             start_iter = step
         if opts.checkpoint_every and opts.checkpoint_fn is None:
-            writer = ckpt.Checkpointer(checkpoint_dir, meta=meta)
+            writer = ckpt.Checkpointer(
+                checkpoint_dir, meta=meta,
+                shard=persistence.bundle_shard(bundle))
 
             def checkpoint_fn(b: Bundle, i: int) -> None:
                 # i is the last iteration done: i + 1 are in the state
@@ -468,14 +510,21 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
     own checkpoints); every instance of a bucket carries the bucket's
     ``RecoveryReport``.
 
+    ``mesh=``: every rank makes this call with the same instances; each
+    bucket's instances split across the ranks of the mesh's data axes,
+    filler lanes (copies of the last instance, inactive from the start,
+    never reported) making them divide, and every rank gets every
+    instance's Solution.  The ranks agree on convergence, cancellation
+    and re-compaction from the chunk's costs, gathered with its one
+    host sync; re-compaction keeps each rank's lanes on that rank and
+    an equal count on every rank.
+
     Returns one :class:`Solution` per instance, unpadded, in input
     order.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP A13, multi-device)")
     problem = _as_problem(problem, cfg)
     opts = _resolved_options(problem, options, run_opts)
+    _check_mesh(mesh, opts)
     instances = [tuple(inst) for inst in instances]
     if not instances:
         return []
@@ -513,10 +562,11 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
                 f"checkpoint was never written")
     _check_checkpoint_args(opts, checkpoint_dir, resume)
     dev = resolve_device(device)
+    lanes = compat.axes_of(mesh, _dp_axes(mesh))
     solutions: List[Optional[Solution]] = [None] * len(instances)
     with _chaos.maybe_from_env():
         for bucket in plan:
-            _run_bucket(problem, bucket, instances, opts, dev,
+            _run_bucket(problem, bucket, instances, opts, dev, lanes,
                         checkpoint_dir, resume, recompact_below, solutions)
     return solutions
 
@@ -551,13 +601,36 @@ def stack_bucket(problem: Problem, bucket: batching.Bucket, instances,
     return state, shared, rec_axes
 
 
+def _rank_lanes(state, rec_axes: Dict[str, int], orig: np.ndarray,
+                lanes: compat.Axes):
+    """A bucket's state cut to this rank's block of lanes: filler lanes
+    (copies of the last, ``orig`` -1) first make the batch divide across
+    the ranks, as the JAX package pads a bucket for its mesh."""
+    axes = engine.state_axes(state, rec_axes)
+    need = (-len(orig)) % lanes.size
+    if need:
+        def fill(x, a):
+            return torch.cat([x] + [x.narrow(a, x.shape[a] - 1, 1)] * need,
+                             dim=a)
+
+        state = persistence.map_with_axes(fill, state, axes)
+        orig = np.concatenate([orig, np.full(need, -1, np.int64)])
+    lo, hi = compat.block_range(len(orig), lanes)
+    state = persistence.map_with_axes(
+        lambda x, a: x.narrow(a, lo, hi - lo).contiguous(), state, axes)
+    return state, orig
+
+
 def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
-                opts: RunOptions, device, checkpoint_dir, resume,
-                recompact_below: float,
+                opts: RunOptions, device, lanes: compat.Axes,
+                checkpoint_dir, resume, recompact_below: float,
                 solutions: List[Optional[Solution]]) -> None:
     """Stack, run and unstack one bucket, writing its Solutions."""
     state, shared, rec_axes = stack_bucket(problem, bucket, instances,
                                            device)
+    orig = np.asarray(bucket.indices, dtype=np.int64)
+    if lanes:
+        state, orig = _rank_lanes(state, rec_axes, orig, lanes)
     bopts = opts
     writer = None
     bdir = None
@@ -577,9 +650,11 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
     bopts = _with_rollback_dir(bopts, bdir)
     driver = BatchedDriver(problem.full_step, state, shared,
                            options=derive_options(problem, bopts),
-                           data_axes=rec_axes,
-                           orig_indices=np.asarray(bucket.indices),
-                           recompact_below=recompact_below)
+                           data_axes=rec_axes, orig_indices=orig,
+                           recompact_below=recompact_below,
+                           lane_axes=lanes)
+    if writer is not None:
+        writer.shard = driver.payload_shard()
     del state
     start_iter = 0
     if bdir is not None and resume:
@@ -594,6 +669,7 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
                     stacklevel=3)
             payload, _ = ckpt.restore(
                 bdir, step, driver.payload_template(), device=device,
+                records=driver.lane_range,
                 expect_meta=lambda m: m.get("problem") == meta["problem"]
                 and m.get("config") == meta["config"]
                 and m.get("bucket") == meta["bucket"])

@@ -25,6 +25,13 @@ low-rank mode the dual ``Xd`` has no scale axis: it is (n, S, S),
 record-major, in both packages, beside the test matrix ``omega`` in
 ``replicated``.
 
+Under a mesh (``build_bundle(mesh=)``, ``solve(..., mesh=)``) the step
+sizes, the weights and the starting point come from the full stamps, as
+the single solve computes them; each rank then keeps its block of stamps
+(the scale-major leaves cut on axis 1) and the objective is summed over
+the mesh's data axes, as are the low-rank range finder's two products
+(``imaging/lowrank.py``).
+
 A bucket of ``solve_many`` stacks each leaf at its record axis: stamps
 (B, n, S, S), the scale-major leaves (J, B, n, S, S), which is the
 (J, B * n, S, S) stack Phi writes over all of a bucket's stamps, so the
@@ -43,7 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching import BatchAxes
-from repro_torch.core.bundle import Bundle
+from repro_torch.core.bundle import Bundle, gather_leaf
+from repro_torch.core.compat import psum
 from repro_torch.core.problem import Problem, register
 from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
@@ -70,7 +78,8 @@ def scale_major(data) -> tuple:
 
 def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
                  sigma_noise: float = 0.02, u0=None, v0=None, x0=None,
-                 noise=None, omega=None) -> Tuple[Bundle, dict]:
+                 noise=None, omega=None, mesh=None
+                 ) -> Tuple[Bundle, dict]:
     """Steps 1-5: place the inputs and derived state in the bundle.
 
     Beyond the paper's arrays the bundle carries ``psf_fp`` (the
@@ -82,6 +91,8 @@ def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
     random draws of the operator norms and the noise calibration (see
     ``condat.step_sizes``); ``omega`` is low-rank mode's (S*S, rank +
     ``lowrank.OVERSAMPLE``) test matrix (see ``imaging/lowrank.py``).
+    With ``mesh`` every quantity is computed from all the stamps first,
+    then the bundle keeps this rank's block of them.
     """
     check_mode(cfg)
     dev = resolve_device(device)
@@ -105,7 +116,8 @@ def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
         replicated["omega"] = lr.resolve_omega(
             omega, Y.shape[-1] * Y.shape[-2], cfg.rank, lr.OVERSAMPLE, dev)
     bundle = Bundle.create(data, replicated=replicated, device=dev,
-                           record_axes={k: 1 for k in scale_major(data)})
+                           record_axes={k: 1 for k in scale_major(data)},
+                           mesh=mesh)
     return bundle, {"tau": tau, "sig": sig}
 
 
@@ -155,9 +167,9 @@ def make_step_fn(cfg: SolverConfig):
             d_new, (W, CX_new) = _sparse_update(d, rep, cfg)
             cost = data_cost_from(d_new["HX"], d["Y"]) + \
                 sparse_reg_cost(CX_new, W)
-            return d_new, {"cost": cost}
+            return d_new, {"cost": psum(cost, axes)}
         d_new = _lowrank_update(d, rep, axes, cfg)
-        return d_new, {"cost": data_cost_from(d_new["HX"], d["Y"])
+        return d_new, {"cost": psum(data_cost_from(d_new["HX"], d["Y"]), axes)
                        + cfg.lam * _nuclear(d_new, rep, axes)}
 
     return step
@@ -187,8 +199,10 @@ def make_cost_fn(cfg: SolverConfig):
     def cost(d, rep, axes):
         data_part = data_cost_from(d["HX"], d["Y"])
         if cfg.mode == "sparse":
-            return {"cost": data_part + sparse_reg_cost(d["CX"], d["W"])}
-        return {"cost": data_part + cfg.lam * _nuclear(d, rep, axes)}
+            return {"cost": psum(data_part + sparse_reg_cost(d["CX"], d["W"]),
+                                 axes)}
+        return {"cost": psum(data_part, axes)
+                + cfg.lam * _nuclear(d, rep, axes)}
 
     return cost
 
@@ -221,7 +235,7 @@ class DeconvolutionProblem(Problem):
         self._light = make_light_step_fn(self.cfg)
         self._cost = make_cost_fn(self.cfg)
 
-    def init_bundle(self, inputs, device) -> Bundle:
+    def init_bundle(self, inputs, device, mesh=None) -> Bundle:
         Y, psfs, *rest = inputs
         draws = {"u0": self.u0, "v0": self.v0, "x0": self.x0,
                  "noise": self.noise}
@@ -234,7 +248,7 @@ class DeconvolutionProblem(Problem):
             draws.update(own)
         bundle, _ = build_bundle(Y, psfs, self.cfg, device=device,
                                  sigma_noise=self.sigma_noise,
-                                 omega=self.omega, **draws)
+                                 omega=self.omega, mesh=mesh, **draws)
         return bundle
 
     def full_step(self, d, rep, axes):
@@ -247,7 +261,7 @@ class DeconvolutionProblem(Problem):
         return self._cost(d, rep, axes)
 
     def finalize(self, bundle, log) -> Tuple[np.ndarray, dict]:
-        return bundle.data["Xp"].detach().cpu().numpy(), {}
+        return gather_leaf(bundle, "Xp"), {}
 
     def batch_axes(self):
         # (Y, psfs) are both stamp-major, an instance's own draws (a

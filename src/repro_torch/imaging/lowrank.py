@@ -35,9 +35,11 @@ range finder's lambda^-1/2 magnifies the difference; a batched bucket of
 completions drifted several times farther from the fp64 trajectory than
 its single solves (``tools/record_sums.py``, ``PERF.md``, PR 17).
 
-``axes`` (the JAX module's mesh axes to psum over) stays in the
-signatures; the port has one device, and a non-empty value raises
-(ROADMAP A13, multi-device).
+``axes`` are the mesh axes the rows are split over (``core.compat``):
+the Gram Y^T Y (r x r) and B = Q^T A (r x p) are summed over them
+(``compat.psum``), so every rank factors the same matrices in the same
+deterministic kernels and holds the same factors, while Q and the
+thresholded rows stay the rank's own.
 
 Random draws are a seam: the JAX module draws the test matrix Omega from
 ``PRNGKey(7)``, which torch cannot reproduce.  Here Omega is an argument
@@ -57,17 +59,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching import BatchAxes
-from repro_torch.core.bundle import Bundle
+from repro_torch.core.bundle import Bundle, gather_leaf
+from repro_torch.core.compat import psum
 from repro_torch.core.problem import Problem, register
 from repro_torch.kernels.common import to_device
 from repro_torch.kernels.jacobi import ops as jacobi_ops
-
-
-def _single_device(axes) -> None:
-    if axes:
-        raise NotImplementedError(
-            f"axes={axes!r}: reductions across devices are not ported yet "
-            f"(ROADMAP A13, multi-device)")
 
 
 def svt(mat: torch.Tensor, thresh) -> torch.Tensor:
@@ -92,13 +88,14 @@ def randomized_svt_local(a_local: torch.Tensor, omega: torch.Tensor,
     """SVT of the (n, p) matrix, or of each of a (B, n, p) batch, through
     the range finder (module docstring).  ``omega``: (p, r) test matrix;
     ``thresh`` a number, a 0-d tensor on the device or one per matrix
-    (B,).  ``use_kernel=False`` takes the factorizations' plain versions
-    on the card, for comparison."""
-    _single_device(axes)
+    (B,).  ``axes``: the mesh axes the rows are split over (the two
+    products over the rows are summed over them).  ``use_kernel=False``
+    takes the factorizations' plain versions on the card, for
+    comparison."""
     if isinstance(thresh, torch.Tensor) and thresh.dim():
         thresh = thresh.unsqueeze(-1)
     y = a_local @ omega                              # (n, r)
-    gram = _over_records(y, y)                       # (r, r)
+    gram = psum(_over_records(y, y), axes)           # (r, r)
     # orthogonalise through the Gram eigendecomposition (rank-deficient
     # safe: null directions are clipped)
     evals, evecs = jacobi_ops.eigh(gram, use_kernel=use_kernel)
@@ -106,7 +103,7 @@ def randomized_svt_local(a_local: torch.Tensor, omega: torch.Tensor,
                         torch.rsqrt(torch.clamp(evals, min=1e-30)),
                         torch.zeros_like(evals))
     q = y @ (evecs * scale.unsqueeze(-2))            # (n, r) orthonormal
-    b = _over_records(q, a_local)                    # (r, p)
+    b = psum(_over_records(q, a_local), axes)        # (r, p)
     # svd(B) through B^T = Q_B R: B = R^T Q_B^T, R^T = U S W^T
     q_b, r_b = torch.linalg.qr(b.mT)                 # (p, r), (r, r)
     u, s, wt = jacobi_ops.svd(r_b.mT, use_kernel=use_kernel)
@@ -171,10 +168,9 @@ def nuclear_norm_rf(X_loc, omega, axes):
     eigenvalues of the projection's (r, r) Gram (``jacobi.eigh``
     without vectors) — exact when rank(X) <= r, as for every post-SVT
     iterate.  Shared by the low-rank deconvolution objective and the
-    completion workload."""
-    _single_device(axes)
+    completion workload.  The Gram is summed over ``axes``."""
     y = X_loc @ omega
-    s2 = jacobi_ops.eigh(_over_records(y, y), compute_v=False)
+    s2 = jacobi_ops.eigh(psum(_over_records(y, y), axes), compute_v=False)
     return torch.sum(torch.sqrt(torch.clamp(s2, min=0.0)), dim=-1)
 
 
@@ -197,7 +193,7 @@ class LowRankCompletionProblem(Problem):
         self.cfg = cfg if cfg is not None else CompletionConfig()
         self.omega = omega
 
-    def init_bundle(self, inputs, device) -> Bundle:
+    def init_bundle(self, inputs, device, mesh=None) -> Bundle:
         Y, M = inputs
         Y = to_device(Y, device, torch.float32)
         M = to_device(M, device, torch.float32)
@@ -205,7 +201,7 @@ class LowRankCompletionProblem(Problem):
         omega = resolve_omega(self.omega, Y.shape[1], self.cfg.rank,
                             self.cfg.oversample, device)
         return Bundle.create(data, device=device,
-                             replicated={"omega": omega})
+                             replicated={"omega": omega}, mesh=mesh)
 
     def _iterate(self, d, rep, axes):
         cfg = self.cfg
@@ -222,12 +218,13 @@ class LowRankCompletionProblem(Problem):
         return self._iterate(d, rep, axes)
 
     def cost(self, d, rep, axes):
-        data_part = 0.5 * torch.sum(_masked_residual(d) ** 2, dim=(-2, -1))
+        data_part = psum(0.5 * torch.sum(_masked_residual(d) ** 2,
+                                         dim=(-2, -1)), axes)
         nuc = nuclear_norm_rf(d["X"], rep["omega"], axes)
         return {"cost": data_part + self.cfg.lam * nuc}
 
     def finalize(self, bundle, log) -> Tuple[np.ndarray, dict]:
-        return bundle.data["X"].detach().cpu().numpy(), {}
+        return gather_leaf(bundle, "X"), {}
 
     def batch_axes(self):
         # (Y, M) are row-major; Omega depends only on the config (or the

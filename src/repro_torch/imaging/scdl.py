@@ -40,6 +40,13 @@ Differences from the JAX module, each deliberate:
   boundary.
 - The deprecated ``train`` shim is not ported; use ``solve("scdl", ...)``.
 
+Under a mesh (``build_bundle(mesh=)``, ``solve(..., mesh=)``) the atoms
+are chosen and the normalizers ``n_h``/``n_l`` taken over all K samples,
+as the single solve does; each rank then keeps its block of samples.
+The four outer products of step 9 are summed over the mesh's data axes
+in one all-reduce, as are the two residuals of the objective, so every
+rank computes the same dictionaries and factors from the same sums.
+
 The steps also take a bucket of instances (``solve_many``, which buckets
 SCDL instances only with equal K): every leaf with an instance axis in
 front (``YZ`` (5, B, K, A)), the ridge products and factorizations
@@ -59,6 +66,7 @@ import torch
 
 from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle
+from repro_torch.core.compat import psum_tree
 from repro_torch.core.problem import Problem, register
 from repro_torch.kernels.admm_elwise.ops import admm_elwise
 from repro_torch.kernels.common import resolve_device, to_device
@@ -181,7 +189,7 @@ def broadcast_factors(Xh, Xl, cfg: SCDLConfig):
 
 
 def build_bundle(S_h, S_l, cfg: SCDLConfig, *, device=None,
-                 idx=None) -> Bundle:
+                 idx=None, mesh=None) -> Bundle:
     """Steps 1-5: the sample-major bundle on ``device`` (``None`` =
     ``"cuda"``).  ``S_h`` (P, K) and ``S_l`` (M, K) are numpy arrays or
     tensors, in the JAX layout.
@@ -190,7 +198,8 @@ def build_bundle(S_h, S_l, cfg: SCDLConfig, *, device=None,
     plane-major multipliers ``YZ`` (5, K, A).  Replicated: the
     dictionaries, their solve factors ``Fh``/``Fl`` (dicts) and the
     constant objective normalizers ``n_h``/``n_l`` = ||S||^2 (0-d fp32
-    device tensors)."""
+    device tensors).  With ``mesh`` the bundle keeps this rank's block
+    of the samples, everything else computed from all of them."""
     dev = resolve_device(device)
     S_h = to_device(S_h, dev)
     S_l = to_device(S_l, dev)
@@ -209,7 +218,7 @@ def build_bundle(S_h, S_l, cfg: SCDLConfig, *, device=None,
                       n_h=torch.sum(S_h.to(torch.float32) ** 2),
                       n_l=torch.sum(S_l.to(torch.float32) ** 2))
     return Bundle.create(data, replicated=replicated, device=dev,
-                         record_axes={k: 1 for k in PLANE_MAJOR})
+                         record_axes={k: 1 for k in PLANE_MAJOR}, mesh=mesh)
 
 
 def _code_updates(d, rep, cfg: SCDLConfig):
@@ -229,13 +238,14 @@ def _code_updates(d, rep, cfg: SCDLConfig):
     return dict(d, Wh=Wh, Wl=Wl, YZ=YZ)
 
 
-def _outer_products(d):
+def _outer_products(d, axes):
     """Step 9: S^T W and W^T W of both pairs, one ``dict_outer_pair``
-    launch (one per instance of a bucket)."""
+    launch (one per instance of a bucket), summed over ``axes`` in one
+    all-reduce."""
     keys = ("ShWh", "SlWl", "phi_h", "phi_l")
     operands = (d["Sh"], d["Sl"], d["Wh"], d["Wl"])
     if d["Sh"].dim() == 2:
-        return dict(zip(keys, dict_outer_pair(*operands)))
+        return psum_tree(dict(zip(keys, dict_outer_pair(*operands))), axes)
     lanes = [dict_outer_pair(*(x[b] for x in operands))
              for b in range(d["Sh"].shape[0])]
     return {k: torch.stack([lane[i] for lane in lanes])
@@ -259,20 +269,23 @@ def _dict_update(rep, outer, cfg: SCDLConfig):
             "Xl": update(outer["phi_l"], outer["SlWl"])}
 
 
-def _iterate(d, rep, cfg: SCDLConfig):
+def _iterate(d, rep, axes, cfg: SCDLConfig):
     """Steps 8-10 minus the objective: the shared body of the full and
     cost-free step variants."""
     d = _code_updates(d, rep, cfg)
-    return d, _dict_update(rep, _outer_products(d), cfg)
+    return d, _dict_update(rep, _outer_products(d, axes), cfg)
 
 
-def _nrmse(d, rep, Xh, Xl):
+def _nrmse(d, rep, Xh, Xl, axes):
     """The paper's Fig. 14 metric: reconstruction error of the
-    dictionaries, as 0-d device tensors."""
-    res_h = torch.sum((d["Sh"] - d["Wh"] @ Xh.mT) ** 2, dim=(-2, -1))
-    res_l = torch.sum((d["Sl"] - d["Wl"] @ Xl.mT) ** 2, dim=(-2, -1))
-    nrmse_h = torch.sqrt(res_h / (rep["n_h"] + 1e-12))
-    nrmse_l = torch.sqrt(res_l / (rep["n_l"] + 1e-12))
+    dictionaries, as 0-d device tensors (the residuals summed over
+    ``axes``)."""
+    res = psum_tree({
+        "h": torch.sum((d["Sh"] - d["Wh"] @ Xh.mT) ** 2, dim=(-2, -1)),
+        "l": torch.sum((d["Sl"] - d["Wl"] @ Xl.mT) ** 2, dim=(-2, -1))},
+        axes)
+    nrmse_h = torch.sqrt(res["h"] / (rep["n_h"] + 1e-12))
+    nrmse_l = torch.sqrt(res["l"] / (rep["n_l"] + 1e-12))
     return {"cost": 0.5 * (nrmse_h + nrmse_l),
             "nrmse_h": nrmse_h, "nrmse_l": nrmse_l}
 
@@ -285,8 +298,8 @@ def make_step_fn(cfg: SCDLConfig):
     folds them (and their solve factors) into the replicated side."""
 
     def step(d, rep, axes):
-        d, new = _iterate(d, rep, cfg)
-        return d, {**_nrmse(d, rep, new["Xh"], new["Xl"]), **new}
+        d, new = _iterate(d, rep, axes, cfg)
+        return d, {**_nrmse(d, rep, new["Xh"], new["Xl"], axes), **new}
 
     return step
 
@@ -296,7 +309,7 @@ def make_light_step_fn(cfg: SCDLConfig):
     "Xl"})``, so the dictionaries still advance every iteration."""
 
     def step(d, rep, axes):
-        return _iterate(d, rep, cfg)
+        return _iterate(d, rep, axes, cfg)
 
     return step
 
@@ -307,7 +320,7 @@ def make_cost_fn(cfg: SCDLConfig):
     dictionaries."""
 
     def cost(d, rep, axes):
-        return _nrmse(d, rep, rep["Xh"], rep["Xl"])
+        return _nrmse(d, rep, rep["Xh"], rep["Xl"], axes)
 
     return cost
 
@@ -344,7 +357,7 @@ class SCDLProblem(Problem):
         self._cost = make_cost_fn(self.cfg)
         self._refresh = make_refresh_fn(self.cfg)
 
-    def init_bundle(self, inputs, device) -> Bundle:
+    def init_bundle(self, inputs, device, mesh=None) -> Bundle:
         S_h, S_l, *rest = inputs
         idx = self.idx
         if rest:
@@ -353,7 +366,8 @@ class SCDLProblem(Problem):
                 raise ValueError(f"unknown draws {sorted(set(own) - {'idx'})}"
                                  f"; an instance may carry ('idx',)")
             idx = own.get("idx", idx)
-        return build_bundle(S_h, S_l, self.cfg, device=device, idx=idx)
+        return build_bundle(S_h, S_l, self.cfg, device=device, idx=idx,
+                            mesh=mesh)
 
     def full_step(self, d, rep, axes):
         return self._step(d, rep, axes)

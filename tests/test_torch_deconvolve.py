@@ -12,11 +12,15 @@ orders differ); iterates rtol 1e-4 with atol 1e-6
 (``tests/test_solve_many.py``).  ``iters_run`` and ``converged_at`` must
 be equal: a wrong convergence stride stops at another iteration.
 """
+import contextlib
+import datetime
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core.bundle import gather as jgather
 from repro.core.problem import solve as jsolve
@@ -27,6 +31,7 @@ from repro_torch.convert import bundle_from_numpy, bundle_to_numpy
 from repro_torch.core.problem import solve
 from repro_torch.imaging import deconvolve
 from repro_torch.imaging.condat import SolverConfig
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.resilience.recovery import ResilienceConfig
 from repro_torch.kernels.condat_elwise.kernel import (condat_dual_fwd,
                                                       condat_primal_fwd)
@@ -210,20 +215,42 @@ def test_solve_without_cuda_raises(case):
               max_iter=1)
 
 
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A (data=1) gloo mesh over a one-rank process group of this
+    process, torn down after use."""
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1),
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh((1,), ("data",), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "A13"),
     (dict(resilience=ResilienceConfig()), "A11"),
 ])
-def test_later_slice_options_raise(case, kwargs, item):
-    """``mesh=`` (A13) still raises, naming its ROADMAP item; A11 is in,
-    so ``resilience=`` is accepted and its report comes back clean."""
-    Y, P, _ = case
+def test_later_slice_options_raise(case, kwargs, item, tmp_path):
+    """A13 and A11 are in.  ``mesh=`` takes a mesh, so an arbitrary
+    object raises ``TypeError``, and a one-rank gloo mesh runs the
+    solve bit for bit as it runs without one; ``resilience=`` is
+    accepted and its report comes back clean."""
+    Y, P, draws = case
     if item == "A11":
         sol = solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
         assert sol.recovery is not None and sol.recovery.faults == []
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         solve("deconvolve", Y, P, device="cpu", max_iter=1, **kwargs)
+    kw = dict(device="cpu", max_iter=8, chunk=4, cost_every="chunk", tol=0)
+    want = solve(_problem(draws), Y, P, **kw)
+    with one_rank_mesh(tmp_path) as mesh:
+        got = solve(_problem(draws), Y, P, mesh=mesh, **kw)
+    assert got.bundle.n_partitions == 1
+    np.testing.assert_array_equal(got.log.costs, want.log.costs)
+    np.testing.assert_array_equal(got.x, want.x)
 
 
 @pytest.mark.parametrize("kwargs,match", [

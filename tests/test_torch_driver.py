@@ -176,3 +176,38 @@ def test_percentiles_summary():
     assert p["p50"] == pytest.approx(2.5)
     log = RunLog(times=[0.5, 0.5])
     assert log.total_seconds == 1.0 and log.percentiles()["p99"] == 0.5
+
+
+def test_problems_package_lists_the_reference_workloads():
+    """``repro_torch.problems`` mirrors ``repro.problems``: ``list()``
+    holds the JAX package's keys once imported, ``get`` returns the
+    registered classes and ``solve`` is the entry point."""
+    from repro import problems as jproblems
+    from repro_torch import problems as tproblems
+    from repro_torch.imaging.scdl import SCDLProblem
+    assert tproblems.list() == jproblems.list() == \
+        ("deconvolve", "lowrank", "scdl")
+    assert tproblems.get("scdl") is SCDLProblem
+    assert tproblems.solve is problem.solve
+    assert tproblems.solve_many is problem.solve_many
+
+
+def test_bundle_zip_and_map():
+    """The paper's RDD.zip of two co-partitioned bundles (disjoint keys,
+    equal records, record axes kept), and ``bundle_map`` /
+    ``bundle_map_reduce`` without a mesh."""
+    from repro_torch.core.bundle import bundle_map, bundle_map_reduce
+    a = Bundle.create({"x": np.ones((3, 2), np.float32)}, device="cpu")
+    b = Bundle.create({"w": np.ones((2, 3), np.float32)}, device="cpu",
+                      record_axes={"w": 1})
+    z = a.zip(b)
+    assert sorted(z.data) == ["w", "x"] and z.record_axis("w") == 1
+    assert z.n_records == 3 and z.n_partitions == 1
+    with pytest.raises(ValueError, match="both bundles hold"):
+        a.zip(a)
+    with pytest.raises(ValueError, match="equal record counts"):
+        a.zip(Bundle.create({"v": np.ones(4)}, device="cpu"))
+    doubled = bundle_map(lambda d: {k: 2 * v for k, v in d.items()}, z)
+    assert float(doubled.data["x"].sum()) == 12.0
+    sums = bundle_map_reduce(lambda d: {"s": d["x"].sum()}, z)
+    assert float(sums["s"]) == 6.0

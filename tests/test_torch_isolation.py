@@ -8,7 +8,9 @@ or ``import_module`` call, including in functions that the first guard
 never runs.  The resilience and serving modules, whose command-line
 entry points (``python -m repro_torch.resilience.chaos``, ``python -m
 repro_torch.serve.drill``) make their own data, are among those the
-first guard imports.
+first guard imports.  Importing every module also leaves
+``torch.distributed`` uninitialized: the mesh modules build groups only
+when called.
 """
 import ast
 import os
@@ -31,6 +33,9 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+import torch.distributed as dist
+# importing initializes no process group (launch.mesh, core.compat)
+assert not dist.is_initialized()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or
              m.startswith(("jax.", "jaxlib.", "repro.")))

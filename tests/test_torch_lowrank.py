@@ -34,11 +34,14 @@ Tolerances:
 - bundles carried through ``repro_torch.convert``: leaves rtol 1e-4,
   round trips exact.
 """
+import datetime
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core.bundle import gather as jgather
 from repro.core.problem import solve as jsolve
@@ -47,12 +50,14 @@ from repro.imaging import lowrank as jlr
 from repro.imaging import psf as jpsf
 from repro.imaging.condat import SolverConfig as JConfig
 from repro_torch.convert import bundle_from_numpy, bundle_to_numpy
+from repro_torch.core.compat import axes_of
 from repro_torch.core.problem import solve
 from repro_torch.imaging import deconvolve, lowrank
 from repro_torch.imaging.condat import SolverConfig
 from repro_torch.kernels.condat_elwise.kernel import condat_primal_fwd
 from repro_torch.kernels.jacobi import kernel as jk
 from repro_torch.kernels.jacobi import ops as jops
+from repro_torch.launch.mesh import make_mesh
 
 torch.set_num_threads(2)
 
@@ -189,12 +194,31 @@ def test_injected_omega_is_checked():
     assert om.dtype == torch.float32 and tuple(om.shape) == (50, 14)
 
 
-def test_axes_raise_until_multi_device():
-    a, om = torch.zeros(8, 6), torch.zeros(6, 4)
-    with pytest.raises(NotImplementedError, match="A13"):
+def test_axes_raise_until_multi_device(tmp_path):
+    """A13 is in: the two products over the rows are summed over the
+    ``Axes`` of a mesh.  Bare axis names carry no process group and
+    raise ``TypeError``; on a one-rank gloo mesh both functions give
+    their meshless results bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    a, om = torch.randn(8, 6, generator=g), torch.randn(6, 4, generator=g)
+    with pytest.raises(TypeError, match="Axes"):
         lowrank.randomized_svt_local(a, om, 0.1, axes=("data",))
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Axes"):
         lowrank.nuclear_norm_rf(a, om, ("data",))
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1),
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        axes = axes_of(make_mesh((1,), ("data",), device="cpu"), ("data",))
+        assert axes and axes.size == 1
+        torch.testing.assert_close(
+            lowrank.randomized_svt_local(a, om, 0.1, axes=axes),
+            lowrank.randomized_svt_local(a, om, 0.1), rtol=0, atol=0)
+        torch.testing.assert_close(lowrank.nuclear_norm_rf(a, om, axes),
+                                   lowrank.nuclear_norm_rf(a, om, ()),
+                                   rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------- Jacobi plain versions

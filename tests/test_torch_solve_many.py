@@ -17,12 +17,15 @@ low-rank deconvolution, the masked early exit, re-compaction and
 batched, so the tolerance is the same rtol 1e-4 / atol 1e-6; without
 explicit draws an instance's step sizes equal its single solve's.
 """
+import contextlib
+import datetime
 import os
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core.problem import solve_many as jsolve_many
 from repro.data.synthetic import coupled_patches as jpatches
@@ -36,6 +39,7 @@ from repro_torch.imaging import psf
 from repro_torch.imaging.condat import SolverConfig
 from repro_torch.imaging.lowrank import CompletionConfig
 from repro_torch.imaging.scdl import SCDLConfig
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.resilience.recovery import ResilienceConfig
 
 torch.set_num_threads(2)
@@ -386,21 +390,44 @@ def test_run_options_rejects_unknown_cost_every_string():
         RunOptions(max_iter=4, cost_every="sometimes")
 
 
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A (data=1) gloo mesh over a one-rank process group of this
+    process, torn down after use."""
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1),
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh((1,), ("data",), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "A13"),
     (dict(resilience=ResilienceConfig()), "A11")])
-def test_later_slice_options_raise(psf_instances, kwargs, item):
-    """``mesh=`` (A13) still raises; ``resilience=`` (A11) is accepted,
-    every instance carrying its bucket's clean report."""
+def test_later_slice_options_raise(psf_instances, kwargs, item, tmp_path):
+    """A13 and A11 are in.  ``mesh=`` takes a mesh (an arbitrary object
+    raises ``TypeError``), and a one-rank gloo mesh runs the buckets bit
+    for bit as they run without one; ``resilience=`` is accepted, every
+    instance carrying its bucket's clean report."""
     if item == "A11":
         sols = solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
                           device="cpu", chunk=CHUNK, **kwargs)
         assert all(s.recovery is not None and s.recovery.faults == []
                    for s in sols)
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
                    device="cpu", **kwargs)
+    want = solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
+                      device="cpu", chunk=CHUNK)
+    with one_rank_mesh(tmp_path) as mesh:
+        got = solve_many("deconvolve", psf_instances, cfg=_deconv_cfg(),
+                         device="cpu", chunk=CHUNK, mesh=mesh)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.log.costs, w.log.costs)
+        np.testing.assert_array_equal(g.x, w.x)
 
 
 def test_problem_without_batched_steps_is_refused(psf_instances):

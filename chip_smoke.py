@@ -130,6 +130,24 @@ prints its final line):
     state, costs and results bit for bit across the ranks; the gaps,
     host syncs (gloo syncs: reported) and times reported, labelled as
     four processes sharing one card.
+22. supervision and serving under a mesh: (a) a one-rank NCCL mesh in
+    this process: phase 19's supervised main path (one host sync per
+    chunk, bit-identical to the unsupervised meshed run, ms per
+    iteration beside it and beside phase 19's), then under phase 19's
+    faults (the report's counts phase 19's, bit-identical again) and
+    phase 19's bucket with a poisoned carry; (b) four gloo ranks
+    time-sharing the card (this script run with ``--sup-rank``): phase
+    4's stamps supervised under ``dispatch@1;carry_nan@1;seed=7`` (the
+    NaN on one rank's shard; bit-identical to the same ranks
+    unsupervised, the same report on every rank) and the low-rank path
+    under ``kernel:jacobi@2`` on every rank (the vote; bit-identical);
+    phase 20's catalogues as eight HTTP requests to rank 0 with ranks
+    1-3 following (``serve.follow``): one bucket, each result within
+    rtol 1e-4 of phase 17's bucket (the gap reported), the input
+    broadcast's seconds; the poison-bucket drill under the mesh.  Its
+    ranks start up (and import ``torch._dynamo``) while phase 21 and
+    22(a) run; the supervised sparse run is held against phase 21(b)'s
+    unsupervised one.
 
 Phases 3 and 6 also hold the Condat passes with a step size per
 instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
@@ -2485,15 +2503,15 @@ def mesh_inputs(torch, name):
     return completion_data(torch, COMP_N, COMP_P, 31, "cuda")
 
 
-def mesh_solve(name, inputs, mesh, progress=None):
+def mesh_solve(name, inputs, mesh, progress=None, **extra):
     """The path ``name`` as its phase runs it, under ``mesh`` (or
-    none)."""
+    none); ``extra`` adds run options (``resilience=``)."""
     from repro_torch.core.problem import solve
     from repro_torch.imaging.condat import SolverConfig
     from repro_torch.imaging.lowrank import CompletionConfig
     from repro_torch.imaging.scdl import SCDLConfig
     kw = dict(mesh=mesh, progress_fn=progress, cost_every="chunk",
-              chunk=MESH_CHUNK[name])
+              chunk=MESH_CHUNK[name], **extra)
     if name == "sparse":
         return solve("deconvolve", *inputs, cfg=SolverConfig(
             mode="sparse", n_scales=SCALES), max_iter=MAIN_ITERS, tol=1e-5,
@@ -2518,6 +2536,12 @@ def mesh_ms(sol, name):
 
 def _xs(sol):
     return sol.x if isinstance(sol.x, tuple) else (sol.x,)
+
+
+def _digests(sol):
+    """sha256 of each of a solve's results (its bits)."""
+    import hashlib
+    return [hashlib.sha256(a.tobytes()).hexdigest() for a in _xs(sol)]
 
 
 def mesh_nccl_profile(torch, sol, name):
@@ -2699,9 +2723,7 @@ def mesh_rank_main(rank: int, size: int, out: Path,
                 "ms_per_iter": mesh_ms(sol, name), "syncs_per_chunk": syncs,
                 "wall_s": wall, "records": sol.bundle.record_range,
                 "x": _xs(sol) if rank == 0 else None,
-                "x_digest": [hashlib.sha256(a.tobytes()).hexdigest()
-                             for a in _xs(sol)],
-                "replicated_digest": rep}
+                "x_digest": _digests(sol), "replicated_digest": rep}
         (out / f"rank_{rank}.pkl").write_bytes(pickle.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2832,6 +2854,688 @@ def mesh_world_phase(torch, plain, backend, size):
     return out
 
 
+# ----------------------------------------------------------------- 22
+# supervision and serving under a mesh: (a) a one-rank NCCL mesh in this
+# process, (b) four gloo ranks sharing the card (subprocesses of this
+# script, --sup-rank)
+SUP_MESH_DIR = ROOT / "build" / "phase22"
+SUP_MESH_SPEC = "dispatch@1;carry_nan@1;seed=7"
+SUP_MESH_VOTE_SPEC = "kernel:jacobi@2;seed=7"
+SUP_MESH_TIMEOUT_S = 300
+# tools/mesh_phase.py --cards: the fault one rank meets alone, in the
+# low-rank path's second chunk past its first collective (the setup's
+# Jacobi calls, then an eigh and an svd an iteration)
+SUP_MESH_LONE_SPEC = "kernel:jacobi@30;seed=7"
+SUP_MESH_LONE_RANK = 2
+
+
+def supervised_nccl_phase(torch, phase19):
+    """22(a): phase 19's supervised main path and bucket under a
+    one-rank NCCL mesh, against the same calls unsupervised under it."""
+    import inspect
+    import shutil
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core.compat import COLLECTIVES
+    from repro_torch.core.problem import solve, solve_many
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.resilience import chaos
+    from repro_torch.resilience.recovery import ResilienceConfig
+    here = SUP_MESH_DIR / "nccl"
+    here.mkdir(parents=True)
+    init = dict(rank=0, world_size=1, timeout=timedelta(seconds=300),
+                store=dist.FileStore(str(here / "store"), 1))
+    if "device_id" in inspect.signature(dist.init_process_group).parameters:
+        init["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group("nccl", **init)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        data = simulate(MAIN_N, torch.Generator().manual_seed(42),
+                        stamp=STAMP)
+        kw = dict(cfg=SolverConfig(mode="sparse", n_scales=SCALES),
+                  max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
+                  cost_every="chunk", tol=0.0, mesh=mesh)
+        out = {}
+
+        # the bucket and the faults first, the timed pair last (22(b)'s
+        # ranks start up meanwhile)
+        edges = np.cumsum((0,) + BUCKET_SIZES)
+        insts = [(data.Y[a:b], data.psfs[a:b])
+                 for a, b in zip(edges[:-1], edges[1:])]
+
+        def bucket(progress):
+            return solve_many("deconvolve", insts, progress_fn=progress,
+                              resilience=ResilienceConfig(),
+                              **dict(kw, tol=1e-5))
+
+        clean, _, csyncs = run_counting_syncs(torch, bucket)
+        with chaos.active_chaos(chaos.ChaosConfig.parse(SUP_BUCKET_SPEC)):
+            hit, _, hsyncs = run_counting_syncs(torch, bucket)
+        brec = hit[0].recovery
+        want_b = phase19["bucket"]["report"]
+        out["bucket"] = {"report": brec.to_json(),
+                         "syncs_per_chunk": [csyncs, hsyncs],
+                         "ms_per_iter": bucket_ms(clean, MAIN_CHUNK),
+                         "bit_identical": all(same_run(h, c) for h, c
+                                              in zip(hit, clean))}
+        del clean, hit
+        log(f"supervised bucket of eight under {SUP_BUCKET_SPEC} and the "
+            f"mesh: rollbacks {brec.rollbacks} (phase 19: "
+            f"{want_b['rollbacks']}), host syncs per chunk {csyncs} and "
+            f"{hsyncs}; every instance bit-identical to the fault-free "
+            f"bucket: {out['bucket']['bit_identical']} "
+            f"({out['bucket']['ms_per_iter']} ms/iteration)")
+        if csyncs != 1 or hsyncs != 1:
+            raise AssertionError(f"supervised meshed bucket: host syncs "
+                                 f"per chunk {csyncs} and {hsyncs}")
+        if (brec.retries, brec.rollbacks) != (want_b["retries"],
+                                              want_b["rollbacks"]):
+            raise AssertionError(f"meshed bucket under "
+                                 f"{SUP_BUCKET_SPEC}: {brec}")
+        if not out["bucket"]["bit_identical"]:
+            raise AssertionError("an instance of the rolled-back meshed "
+                                 "bucket is not bit-identical")
+
+        ckdir = here / "ckpt"
+        with chaos.active_chaos(chaos.ChaosConfig.parse(SUP_SPEC)) as st:
+            t0 = time.perf_counter()
+            faulted = solve("deconvolve", data.Y, data.psfs,
+                            checkpoint_dir=ckdir,
+                            checkpoint_every=CKPT_EVERY,
+                            resilience=ResilienceConfig(), **kw)
+            faulted_wall = time.perf_counter() - t0
+            fired = sorted({k for k, _ in st.fired})
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+        def run(progress, **extra):
+            return solve("deconvolve", data.Y, data.psfs,
+                         progress_fn=progress, **kw, **extra)
+
+        plain, _, psyncs = run_counting_syncs(torch, run)
+        c0 = COLLECTIVES["launches"]
+        sup, wall, syncs = run_counting_syncs(
+            torch, lambda p: run(p, resilience=ResilienceConfig()))
+        per_chunk = (COLLECTIVES["launches"] - c0) / (MAIN_ITERS
+                                                      // MAIN_CHUNK)
+        rec = sup.recovery
+        out.update({
+            "syncs_per_chunk": syncs, "syncs_per_chunk_plain": psyncs,
+            "ms_per_iter": chunk_ms(sup),
+            "plain_ms_per_iter": chunk_ms(plain),
+            "phase19_ms_per_iter": phase19["ms_per_iter"],
+            "phase19_plain_ms_per_iter": phase19["plain_ms_per_iter"],
+            "collectives_per_chunk": per_chunk, "wall_s": wall,
+            "bit_identical": same_run(sup, plain)})
+        log(f"supervised main path under a (1,) NCCL mesh: "
+            f"{out['ms_per_iter']} ms/iteration (unsupervised under the "
+            f"mesh {out['plain_ms_per_iter']}; phase 19 meshless "
+            f"{out['phase19_ms_per_iter']} supervised, "
+            f"{out['phase19_plain_ms_per_iter']} not); host syncs per "
+            f"chunk {syncs} (unsupervised {psyncs}); collectives per "
+            f"chunk {per_chunk:.4g}; costs and iterate bit-identical to "
+            f"the unsupervised meshed run: {out['bit_identical']}")
+        if syncs != 1:
+            raise AssertionError(f"supervised under the mesh: {syncs} host "
+                                 f"syncs per chunk, expected 1")
+        if not out["bit_identical"]:
+            raise AssertionError("supervision under the mesh changed the "
+                                 "trajectory")
+        if rec is None or rec.faults or rec.retries or rec.rollbacks:
+            raise AssertionError(f"fault-free supervised meshed run "
+                                 f"reports {rec}")
+
+        frec, want = faulted.recovery, phase19["faulted"]["report"]
+        out["faulted"] = {"report": frec.to_json(), "fired": fired,
+                          "wall_s": faulted_wall,
+                          "bit_identical": same_run(faulted, sup)}
+        log(f"supervised faults {SUP_SPEC} under the mesh: retries "
+            f"{frec.retries}, rollbacks {frec.rollbacks} (phase 19: "
+            f"{want['retries']}, {want['rollbacks']}), fired {fired}, "
+            f"wall_time_lost_s {frec.wall_time_lost_s:.4f}; bit-identical "
+            f"to the fault-free run: {out['faulted']['bit_identical']}")
+        if (frec.retries, frec.rollbacks) != (want["retries"],
+                                              want["rollbacks"]):
+            raise AssertionError(f"faulted run under the mesh: {frec}")
+        if not out["faulted"]["bit_identical"]:
+            raise AssertionError("the faulted meshed run is not "
+                                 "bit-identical to the fault-free one")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def sup_rank_main(rank: int, size: int, out: Path,
+                  backend: str = "gloo") -> None:
+    """One rank of 22(b) (or of ``tools/mesh_phase.py --cards``, with
+    NCCL and without the service): phase 4's stamps and the low-rank
+    path unsupervised and supervised under faults on every rank; with
+    gloo then phase 20's catalogues served by rank 0 (the others
+    follow) and the poison-bucket drill."""
+    import pickle
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.resilience import chaos
+    from repro_torch.resilience.recovery import ResilienceConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    init = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        init["device_id"] = torch.device("cuda", torch.cuda.current_device())
+    # under NCCL a peer that waits past the lone fault's bound (the vote's
+    # 10 s) fails at this timeout rather than the one of phase 22(b)
+    dist.init_process_group(
+        backend, rank=rank, world_size=size,
+        timeout=timedelta(seconds=90 if backend == "nccl" else 300),
+        store=dist.FileStore(str(out / f"store_sup_{backend}"), size),
+        **init)
+    try:
+        mesh = make_mesh((size,), ("data",), device="cuda")
+        Y, P = (np.load(out / f"stamps_{i}.npy") for i in (0, 1))
+        # started before phase 21: begin when the parent says so
+        res = {"seconds": {"start": time.perf_counter() - T_START}}
+        t0 = time.perf_counter()
+        # a process's first bucket takes its cost's structure from the
+        # cost run on meta tensors (engine.init_batched_cost_like), whose
+        # first use imports torch._dynamo: 7-12 s in a fresh process on
+        # the chip machine (its sources compile at import); import it
+        # during start-up, as the parent process has by phase 17
+        import torch._dynamo  # noqa: F401
+        res["seconds"]["dynamo_import"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while not (out / "go").exists():
+            if time.perf_counter() - t0 > SUP_MESH_TIMEOUT_S:
+                raise TimeoutError("supervised mesh rank: no go")
+            time.sleep(0.02)
+        res["seconds"]["waited"] = time.perf_counter() - t0
+        # phase 21(b)'s ranks ran the sparse path unsupervised in the same
+        # layout (this rank's result is in MESH_DIR): the supervised run is
+        # held against that one
+        earlier = MESH_DIR / f"rank_{rank}.pkl"
+        earlier = (pickle.loads(earlier.read_bytes()).get("sparse")
+                   if backend == "gloo" and earlier.exists() else None)
+        for name, spec in (("sparse", SUP_MESH_SPEC),
+                           ("lowrank", SUP_MESH_VOTE_SPEC)):
+            t0 = time.perf_counter()
+            if name == "sparse" and earlier is not None:
+                plain = {"costs": earlier["costs"],
+                         "x_digest": earlier["x_digest"],
+                         "ms_per_iter": earlier["ms_per_iter"],
+                         "wall_s": earlier["wall_s"]}
+            else:
+                sol, pwall, _ = run_counting_syncs(
+                    torch, lambda progress: mesh_solve(name, (Y, P), mesh,
+                                                       progress))
+                plain = {"costs": sol.log.costs,
+                         "x_digest": _digests(sol),
+                         "ms_per_iter": mesh_ms(sol, name),
+                         "wall_s": pwall}
+                del sol
+            with chaos.active_chaos(chaos.ChaosConfig.parse(spec)):
+                sup, wall, syncs = run_counting_syncs(
+                    torch, lambda progress: mesh_solve(
+                        name, (Y, P), mesh, progress,
+                        resilience=ResilienceConfig()))
+            res[name] = {"bit_identical": (
+                             sup.log.costs == plain["costs"]
+                             and _digests(sup) == plain["x_digest"]),
+                         "plain_from_phase21": name == "sparse"
+                         and earlier is not None,
+                         "report": sup.recovery.to_json(),
+                         "iters": sup.log.iters_run,
+                         "ms_per_iter": mesh_ms(sup, name),
+                         "plain_ms_per_iter": plain["ms_per_iter"],
+                         "syncs_per_chunk": syncs, "wall_s": wall,
+                         "plain_wall_s": plain["wall_s"]}
+            res["seconds"][name] = time.perf_counter() - t0
+            del sup
+        if backend == "gloo":
+            t0 = time.perf_counter()
+            res["serve"] = sup_serve(torch, rank, mesh, Y, P)
+            res["seconds"]["serve"] = time.perf_counter() - t0
+        else:
+            t0 = time.perf_counter()
+            res["overhead"] = sup_overhead(torch, (Y, P), mesh)
+            res["seconds"]["overhead"] = time.perf_counter() - t0
+            (out / f"sup_{rank}.pkl").write_bytes(pickle.dumps(res))
+            # last: the process groups end here
+            res["lone"] = lone_fault(rank, (Y, P), mesh)
+        (out / f"sup_{rank}.pkl").write_bytes(pickle.dumps(res))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sup_overhead(torch, inputs, mesh):
+    """Supervision's cost on NCCL ranks, one a card: the sparse path
+    without faults supervised and not, in turns (plain, supervised,
+    supervised, plain); then one run of each with each part of a chunk
+    timed on the host (the enqueue, the finite flag, its all-reduce, the
+    sync, the checks), and one under ``torch.profiler`` from the end of
+    its first chunk to its last: device and NCCL time, the device's idle
+    share, and the host operations that took most time."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import driver as drv
+    from repro_torch.resilience import supervisor as sv
+    from repro_torch.resilience.recovery import ResilienceConfig
+
+    def run(sup, progress=None):
+        extra = {"resilience": ResilienceConfig()} if sup else {}
+        return mesh_solve("sparse", inputs, mesh, progress, **extra)
+
+    out = {"ms_per_iter": {"plain": [], "supervised": []}}
+    for sup in (False, True, True, False):
+        sol = run(sup)
+        out["ms_per_iter"]["supervised" if sup else "plain"].append(
+            mesh_ms(sol, "sparse"))
+        del sol
+
+    @contextlib.contextmanager
+    def timed(owners):
+        seconds = {name: 0.0 for _, name in owners}
+        saved = [(owner, name, getattr(owner, name)) for owner, name
+                 in owners]
+
+        def wrap(fn, name):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    seconds[name] += time.perf_counter() - t0
+            return wrapper
+
+        for owner, name, fn in saved:
+            setattr(owner, name, wrap(fn, name))
+        try:
+            yield seconds
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+
+    parts = [(drv.IterativeDriver, "_launch_chunk"), (drv, "_host_costs"),
+             (drv, "finite_flag"), (drv, "mesh_flag"),
+             (drv, "host_costs_and_flag"), (sv.Supervisor, "begin_chunk"),
+             (sv.Supervisor, "validate")]
+    out["host_ms_per_chunk"] = {}
+    for sup in (False, True):
+        with timed(parts) as seconds:
+            sol = run(sup)
+        chunks = len(sol.log.times) // MESH_CHUNK["sparse"]
+        out["host_ms_per_chunk"]["supervised" if sup else "plain"] = {
+            k: v * 1e3 / chunks for k, v in seconds.items() if v}
+        del sol
+
+    out["profile"] = {}
+    for sup in (False, True):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        marks = []
+
+        def window(event):
+            # each chunk's end; the profile starts at the first
+            if not marks:
+                torch.cuda.synchronize()
+                prof.start()
+            marks.append((time.perf_counter(), event["done"]))
+
+        run(sup, window)
+        prof.stop()
+        wall_ms = (marks[-1][0] - marks[0][0]) * 1e3
+        iters = marks[-1][1] - marks[0][1]
+        busy = nccl = 0.0
+        host = []
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                ms = ev.self_device_time_total / 1e3
+                busy += ms
+                if "nccl" in ev.key.lower():
+                    nccl += ms
+            else:
+                host.append((ev.self_cpu_time_total / 1e3, ev.key[:60],
+                             ev.count))
+        out["profile"]["supervised" if sup else "plain"] = {
+            "wall_ms_per_iter": wall_ms / iters,
+            "device_ms_per_iter": busy / iters,
+            "nccl_ms_per_iter": nccl / iters,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "host_top_ms_per_iter": [(k, ms / iters, n) for ms, k, n in
+                                     sorted(host, reverse=True)[:8]]}
+    return out
+
+
+def lone_fault(rank, inputs, mesh):
+    """Rank ``SUP_MESH_LONE_RANK`` alone meets a Jacobi fault in the
+    low-rank path's second chunk, past a collective: it waits out the
+    vote, raises ``MeshFaultError`` and tears the mesh down, and every
+    other rank must raise it too (over NCCL, once its watch has aborted
+    its communicators).  Returns this rank's error, its seconds in the
+    call and the host clock when it raised (the ranks share a host)."""
+    from repro_torch.resilience import chaos
+    from repro_torch.resilience.recovery import ResilienceConfig
+    spec = SUP_MESH_LONE_SPEC if rank == SUP_MESH_LONE_RANK else ""
+    t0 = time.perf_counter()
+    err = None
+    try:
+        with chaos.active_chaos(chaos.ChaosConfig.parse(spec)):
+            mesh_solve("lowrank", inputs, mesh,
+                       resilience=ResilienceConfig())
+    except Exception as e:
+        err = e
+    return {"type": type(err).__name__ if err is not None else None,
+            "error": str(err)[:400] if err is not None else None,
+            "seconds": time.perf_counter() - t0, "raised_at": time.time()}
+
+
+def sup_serve(torch, rank, mesh, Y, P):
+    """22(b)'s service: rank 0 serves phase 20's catalogues over HTTP as
+    one bucket, then runs the poison-bucket drill; the other ranks
+    follow both."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import driver as driver_mod
+    from repro_torch.core import problem as problem_mod
+    from repro_torch.serve import drill, follow
+    from repro_torch.serve.client import ServeClient
+    from repro_torch.serve.server import ServeConfig, serve_http
+    # the seconds of a bucket's parts on this rank: its stacking, its
+    # chunks and its gather to every rank
+    parts = {"stack_bucket": [], "run": [], "host_states": []}
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                parts[name].append(time.perf_counter() - t0)
+
+        setattr(owner, name, wrapper)
+
+    timed(problem_mod, "stack_bucket")
+    timed(driver_mod.BatchedDriver, "run")
+    timed(driver_mod.BatchedDriver, "host_states")
+    if rank != 0:
+        calls = [c for _ in range(2) for c in follow(mesh)]
+        # each call's kind and result, and its chunks' seconds
+        kinds = [(kind, type(r).__name__) for kind, r in calls]
+        walls = [sum((r[0] if isinstance(r, list) else r).times)
+                 if not isinstance(r, Exception) else None
+                 for _, r in calls]
+        return {"kinds": kinds, "walls": walls, "parts": parts}
+    edges = np.cumsum((0,) + BUCKET_SIZES)
+    insts = [(Y[a:b], P[a:b]) for a, b in zip(edges[:-1], edges[1:])]
+    options = dict(max_iter=MAIN_ITERS, chunk=MAIN_CHUNK,
+                   cost_every="chunk", tol=1e-5)
+    handle = serve_http(ServeConfig(max_batch=len(insts),
+                                    batch_window_s=SERVE_WINDOW_S),
+                        mesh=mesh)
+    try:
+        client = ServeClient(handle.url, timeout=300)
+        ids = [None] * len(insts)
+
+        def send(j):
+            ids[j] = client.submit("deconvolve", insts[j],
+                                   cfg=dict(mode="sparse", n_scales=SCALES),
+                                   options=options)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(j,))
+                   for j in range(len(insts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        results = [client.result(rid, include_x=True, timeout=300)
+                   for rid in ids]
+        wall = time.perf_counter() - t0
+        metrics = client.metrics()
+        recs = [handle.runner.service.records[rid] for rid in ids]
+        # each request's wait for its bucket and its bucket's run
+        stages = [(r.started_at - r.submitted_at,
+                   r.finished_at - r.started_at) for r in recs]
+    finally:
+        handle.close()
+    t0 = time.perf_counter()
+    detail = drill.drill_poison_bucket(device="cuda", mesh=mesh)
+    return {"results": [{k: r[k] for k in ("costs", "iters_run", "x",
+                                           "batch_size", "bucket_key")}
+                        for r in results],
+            "wall_s": wall, "latency_s": metrics["latency_s"],
+            "stages_s": stages, "parts": parts,
+            "batches": metrics["batch_occupancy"]["batches"],
+            "broadcast_s": metrics["input_broadcast_s"],
+            "drill": {"seconds": time.perf_counter() - t0,
+                      "counters": detail["counters"]}}
+
+
+def sup_world_start(torch, backend, size):
+    """Start 22(b)'s ranks (or the supervised NCCL ranks, one a card):
+    they start up, then wait for ``sup_world_phase`` to let them work.
+    Returns the handle ``sup_world_phase`` takes."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.imaging.psf import simulate
+    shutil.rmtree(SUP_MESH_DIR, ignore_errors=True)
+    SUP_MESH_DIR.mkdir(parents=True)
+    data = simulate(MAIN_N, torch.Generator().manual_seed(42), stamp=STAMP)
+    for i, t in enumerate((data.Y, data.psfs)):
+        np.save(SUP_MESH_DIR / f"stamps_{i}.npy", t.cpu().numpy())
+    del data
+    logs = [open(SUP_MESH_DIR / f"sup_rank_{r}.log", "w")
+            for r in range(size)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sup-rank",
+         str(r), str(size), str(SUP_MESH_DIR), backend], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=str(ROOT)) for r in range(size)]
+    return {"procs": procs, "logs": logs, "t0": time.perf_counter(),
+            "backend": backend, "size": size}
+
+
+def sup_world_stop(world) -> None:
+    """Kill the ranks that are still running and close their logs."""
+    for p in world["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in world["logs"]:
+        f.close()
+
+
+def sup_world_phase(torch, world, phase17=None, meanwhile=None):
+    """22(b) (``backend="gloo"``, the ranks sharing the card) or the
+    supervised paths over NCCL one rank a card, on the ranks
+    ``sup_world_start`` started: each rank's supervised runs
+    bit-identical to its unsupervised ones, the same report on every
+    rank; with gloo the served bucket against phase 17's bucket (rtol
+    1e-4, the gap reported) and the drill.  ``meanwhile()`` runs here
+    first (the ranks begin their work after it); returns this phase's
+    report and what ``meanwhile`` returned."""
+    import pickle
+
+    import numpy as np
+    procs, t0 = world["procs"], world["t0"]
+    backend, size = world["backend"], world["size"]
+    try:
+        before = meanwhile() if meanwhile is not None else None
+        (SUP_MESH_DIR / "go").touch()
+        t_go = time.perf_counter()
+        # over NCCL a hung peer fails at its group's 90 s
+        bound = SUP_MESH_TIMEOUT_S if backend == "gloo" else 180
+        for p in procs:
+            p.wait(timeout=max(1.0, bound - (time.perf_counter() - t_go)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"supervised mesh ranks: no end within "
+                             f"{bound} s")
+    finally:
+        sup_world_stop(world)
+    world_s = time.perf_counter() - t0
+    after_go_s = time.perf_counter() - t_go
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {r: (SUP_MESH_DIR / f"sup_rank_{r}.log").read_text()[-2000:]
+                 for r in bad}
+        raise AssertionError(f"supervised mesh ranks {bad} failed: {tails}")
+    ranks = [pickle.loads((SUP_MESH_DIR / f"sup_{r}.pkl").read_bytes())
+             for r in range(size)]
+    where = (f"{size} processes time-sharing one card" if backend == "gloo"
+             else f"{size} ranks on {size} cards")
+    out = {"world_s": world_s, "after_go_s": after_go_s,
+           "rank_seconds": [r["seconds"] for r in ranks]}
+    log(f"supervised mesh ({size},) {backend}: each rank's seconds "
+        f"{out['rank_seconds']}")
+    for name, want in (("sparse", (1, 1)), ("lowrank", (1, 0))):
+        rows = [r[name] for r in ranks]
+        rep = rows[0]["report"]
+        same = all(r["report"] == rep for r in rows)
+        bits = all(r["bit_identical"] for r in rows)
+        out[name] = {"report": rep, "same_report": same,
+                     "bit_identical": bits,
+                     "ms_per_iter": [r["ms_per_iter"] for r in rows],
+                     "plain_ms_per_iter": [r["plain_ms_per_iter"]
+                                           for r in rows],
+                     "wall_s": [r["wall_s"] for r in rows],
+                     "plain_wall_s": [r["plain_wall_s"] for r in rows],
+                     "syncs_per_chunk": [r["syncs_per_chunk"] for r in rows],
+                     "plain_from_phase21": rows[0]["plain_from_phase21"]}
+        log(f"supervised mesh ({size},) {backend} {name}, {where}: "
+            f"retries {rep['retries']}, rollbacks {rep['rollbacks']}, "
+            f"faults {[(f['point'], f['step'], f.get('rank')) for f in rep['faults']]}; "
+            f"the same report on every rank {same}; bit-identical to the "
+            f"ranks' unsupervised run "
+            f"{'(phase 21(b)) ' if out[name]['plain_from_phase21'] else ''}"
+            f"{bits}; ms/iteration "
+            f"{out[name]['ms_per_iter']} (unsupervised "
+            f"{out[name]['plain_ms_per_iter']}); host syncs per chunk "
+            f"{out[name]['syncs_per_chunk']} (reported, not gated)")
+        if not (same and bits) or (rep["retries"], rep["rollbacks"]) != want:
+            raise AssertionError(f"supervised mesh {name}: same report "
+                                 f"{same}, bit-identical {bits}, report "
+                                 f"{rep}")
+    if backend == "nccl":
+        over = [r["overhead"] for r in ranks]
+        out["overhead"] = over
+        for r, o in enumerate(over):
+            pr = o["profile"]
+            log(f"supervision without faults, rank {r} of {size} NCCL ranks: "
+                f"ms/iteration in turns {o['ms_per_iter']}; host ms a chunk "
+                f"by part {o['host_ms_per_chunk']}; profiled, wall / device "
+                f"/ NCCL ms an iteration and idle share: unsupervised "
+                f"{pr['plain']['wall_ms_per_iter']:.4f} / "
+                f"{pr['plain']['device_ms_per_iter']:.4f} / "
+                f"{pr['plain']['nccl_ms_per_iter']:.4f} / "
+                f"{pr['plain']['idle_share']:.3f}, supervised "
+                f"{pr['supervised']['wall_ms_per_iter']:.4f} / "
+                f"{pr['supervised']['device_ms_per_iter']:.4f} / "
+                f"{pr['supervised']['nccl_ms_per_iter']:.4f} / "
+                f"{pr['supervised']['idle_share']:.3f}")
+            log(f"  rank {r} host operations (ms an iteration, count): "
+                f"unsupervised {pr['plain']['host_top_ms_per_iter']}; "
+                f"supervised {pr['supervised']['host_top_ms_per_iter']}")
+        lone = [r["lone"] for r in ranks]
+        at = lone[SUP_MESH_LONE_RANK]["raised_at"]
+        lag = [r["raised_at"] - at for r in lone]
+        out["lone"] = {"spec": SUP_MESH_LONE_SPEC, "rank":
+                       SUP_MESH_LONE_RANK, "ranks": lone,
+                       "lag_s": lag}
+        log(f"a fault on rank {SUP_MESH_LONE_RANK} alone past a collective "
+            f"({SUP_MESH_LONE_SPEC}): each rank's error "
+            f"{[r['type'] for r in lone]}, seconds in the call "
+            f"{[round(r['seconds'], 3) for r in lone]}, raised "
+            f"{[round(x, 3) for x in lag]} s after rank "
+            f"{SUP_MESH_LONE_RANK}; {lone[0]['error']}")
+        if any(r["type"] != "MeshFaultError" for r in lone) or \
+                max(lag) > 30.0:
+            raise AssertionError(f"lone fault over NCCL: {lone}")
+    if backend == "gloo":
+        served = ranks[0]["serve"]
+        kinds = [r["serve"]["kinds"] for r in ranks[1:]]
+        gap = 0.0
+        for got, want in zip(served["results"], phase17["bucket"]):
+            w = np.asarray(want.log.costs)
+            g = np.asarray(got["costs"])
+            fin = np.isfinite(w)
+            np.testing.assert_allclose(g[fin], w[fin], rtol=BUCKET_RTOL)
+            np.testing.assert_allclose(got["x"], want.x, rtol=BUCKET_RTOL,
+                                       atol=1e-6)
+            gap = max(gap, float(np.max(np.abs(g[fin] - w[fin])
+                                        / np.abs(w[fin]))))
+        out["serve"] = {k: served[k] for k in ("wall_s", "latency_s",
+                                               "batches", "broadcast_s",
+                                               "drill", "stages_s")}
+        out["serve"]["follower_walls"] = [r["serve"]["walls"]
+                                          for r in ranks[1:]]
+        out["serve"]["bucket_parts_s"] = [r["serve"]["parts"]
+                                          for r in ranks]
+        log(f"served under the mesh: each rank's seconds in its buckets' "
+            f"stacking, chunks and gather {out['serve']['bucket_parts_s']}")
+        log(f"served under the mesh: each request's wait for its bucket "
+            f"and the bucket's run (s) {served['stages_s']}; the seconds "
+            f"of each follower's calls' chunks "
+            f"{out['serve']['follower_walls']}")
+        out["serve"]["max_rel_cost_gap_to_phase17"] = gap
+        out["serve"]["follower_calls"] = kinds
+        log(f"served under the mesh: {len(served['results'])} HTTP requests "
+            f"to rank 0, ranks 1-{size - 1} following, batches "
+            f"{served['batches']} (batch sizes "
+            f"{sorted({r['batch_size'] for r in served['results']})}); "
+            f"largest relative cost gap to phase 17's bucket {gap:.3e}; "
+            f"input broadcast {served['broadcast_s']} s; latency "
+            f"{served['latency_s']}; wall {served['wall_s']:.2f} s; the "
+            f"followers' calls {kinds[0]}; drill poison-bucket under the "
+            f"mesh: ok in {served['drill']['seconds']:.2f} s "
+            f"({ {k: v for k, v in served['drill']['counters'].items() if v} })")
+        if served["batches"] != 1 or \
+                {r["batch_size"] for r in served["results"]} != \
+                {len(BUCKET_SIZES)}:
+            raise AssertionError(f"served under the mesh: not one bucket "
+                                 f"({served['batches']} batches)")
+        if any(k != kinds[0] for k in kinds) or kinds[0][0] != \
+                ("solve_many", "list"):
+            raise AssertionError(f"followers' calls {kinds}")
+    log(f"supervised mesh ({size},) {backend} world: {world_s:.1f} s "
+        f"since its ranks started, {after_go_s:.1f} s of work after their "
+        f"start-up, {where}"
+        + (" (not a multi-GPU figure)" if backend == "gloo" else ""))
+    return out, before
+
+
+def supervised_mesh_phase(torch, world, phase19, phase17):
+    """Phase 22: (a), then (b) on the ranks started (``world``) while
+    phase 21(b) ran."""
+    t0 = time.perf_counter()
+    out = {}
+    out["gloo"], out["nccl"] = sup_world_phase(
+        torch, world, phase17,
+        meanwhile=lambda: supervised_nccl_phase(torch, phase19))
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_with_start_up"] = time.perf_counter() - world["t0"]
+    log(f"phase 22: {out['seconds']:.1f} s ({out['seconds_with_start_up']:.1f} "
+        f"s with 22(b)'s start-up, which overlaps phase 21(b))")
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -2948,14 +3652,25 @@ def main() -> int:
         PHASE17, setup_launches=report["buckets"]["sparse"]["setup_launches"],
         ms_per_iter=report["buckets"]["sparse"]["ms_per_iter"]))
     report["serving"]["seconds"] = time.perf_counter() - t0
-    PHASE17.clear()
     log("== multi-device: NCCL at world size 1, full width (mesh=)")
     t0 = time.perf_counter()
     report["mesh"], mesh_plain = mesh_nccl_phase(torch)
-    log("== multi-device: four gloo ranks sharing the card")
-    report["mesh"]["gloo"] = mesh_gloo_phase(torch, mesh_plain)
-    report["mesh"]["seconds"] = time.perf_counter() - t0
-    del mesh_plain
+    # phase 22(b)'s ranks start up (torch, the card, torch._dynamo) while
+    # phase 21(b)'s ranks run, after 21(a)'s timed runs, and wait for
+    # phase 22
+    sup_world = sup_world_start(torch, "gloo", MESH_RANKS)
+    try:
+        log("== multi-device: four gloo ranks sharing the card")
+        report["mesh"]["gloo"] = mesh_gloo_phase(torch, mesh_plain)
+        report["mesh"]["seconds"] = time.perf_counter() - t0
+        del mesh_plain
+    except BaseException:
+        sup_world_stop(sup_world)
+        raise
+    log("== supervision and serving under a mesh")
+    report["supervised_mesh"] = supervised_mesh_phase(
+        torch, sup_world, report["supervision"], PHASE17)
+    PHASE17.clear()
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
@@ -3014,6 +3729,13 @@ def main() -> int:
         f"meshless {meshless}; gloo "
         f"(4,) sharing the card {mg['gloo']['world_s']:.1f} s; "
         f"{mg['seconds']:.1f} s of phase 21")
+    sm = report["supervised_mesh"]
+    log(f"supervision under a (1,) NCCL mesh: "
+        f"{sm['nccl']['ms_per_iter']} ms/iteration against "
+        f"{sm['nccl']['plain_ms_per_iter']} unsupervised under it and "
+        f"{sv['ms_per_iter']} meshless (phase 19); gloo (4,) supervised "
+        f"and served {sm['gloo']['world_s']:.1f} s; "
+        f"{sm['seconds']:.1f} s of phase 22")
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")
@@ -3029,5 +3751,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                        Path(sys.argv[4]), *sys.argv[5:6])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--sup-rank"]:
+        sup_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                      Path(sys.argv[4]), *sys.argv[5:6])
         sys.exit(0)
     sys.exit(main())

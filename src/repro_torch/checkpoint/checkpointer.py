@@ -215,11 +215,15 @@ def _validate_piece(root: Path) -> Optional[str]:
     return None
 
 
-def latest_valid_step(directory) -> Tuple[Optional[int], List[int]]:
-    """The newest step that passes :func:`validate_checkpoint`, and the
-    newer steps skipped as corrupt."""
+def latest_valid_step(directory, at_most: Optional[int] = None
+                      ) -> Tuple[Optional[int], List[int]]:
+    """The newest step (no later than ``at_most``, when given) that
+    passes :func:`validate_checkpoint`, and the newer steps skipped as
+    corrupt."""
     skipped: List[int] = []
     for step in reversed(_saved_steps(Path(directory))):
+        if at_most is not None and step > at_most:
+            continue
         if validate_checkpoint(directory, step) is None:
             return step, skipped
         skipped.append(step)

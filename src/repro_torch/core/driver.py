@@ -30,7 +30,10 @@ each chunk's start is pushed onto a ring of references, the dispatch is
 retried on transient faults, and a non-finite objective or state rolls
 the run back (ring first, then the newest valid checkpoint).  The state
 is judged by one device reduction that reaches the host with the
-chunk's costs, so a supervised chunk still syncs once.  Supervised runs
+chunk's costs, so a supervised chunk still syncs once; under a mesh the
+ranks' verdicts are summed in one all-reduce before that transfer, and
+every recovery decision is taken by every rank together
+(``resilience.supervisor``).  Supervised runs
 always take the chunked loop (``chunk=1`` there runs the scan step of
 one iteration, the same math).  The chaos fault points ``dispatch``
 and ``carry_nan`` sit in both loops and in the batched driver; off,
@@ -61,7 +64,8 @@ from repro_torch.resilience.errors import DivergenceError
 from repro_torch.resilience.recovery import ResilienceConfig
 from repro_torch.resilience.supervisor import (BatchSupervisor, Supervisor,
                                                finite_flag,
-                                               host_costs_and_flag)
+                                               host_costs_and_flag,
+                                               mesh_flag)
 
 
 @dataclass(frozen=True)
@@ -322,15 +326,28 @@ class IterativeDriver:
         data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
         return data, rep, last, _host_costs(trace)
 
+    @property
+    def _parts(self):
+        """``carry_nan``'s layout of the data under a mesh: this rank's
+        block of each leaf's records."""
+        b = self.bundle
+        if not b.axes:
+            return None
+        return b.axes.rank, b.axes.size, lambda path: b.record_axis(path[0])
+
     def _dispatch_supervised(self, data, rep, last, i: int, k: int):
         """The supervised dispatch: the chunk, the ``carry_nan`` fault
         point, and one transfer of the costs with the state's finite
-        flag."""
+        flag (under a mesh every rank's, summed in one all-reduce)."""
         data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
         if _chaos.is_active():
-            data = _chaos.poison_tree("carry_nan", data, step=i)
-        costs, finite = host_costs_and_flag(
-            trace, finite_flag({"data": data, "replicated": rep}))
+            data = _chaos.poison_tree("carry_nan", data, step=i,
+                                      parts=self._parts)
+        flag = finite_flag({"data": data, "replicated": rep})
+        axes = self.bundle.axes
+        if axes:
+            flag = mesh_flag(flag, axes, self.bundle.device)
+        costs, finite = host_costs_and_flag(trace, flag)
         return data, rep, last, costs, finite
 
     def _run_chunked(self, start_iter: int) -> Bundle:
@@ -364,7 +381,8 @@ class IterativeDriver:
                 data, rep, last, costs = self._dispatch_chunk(
                     data, rep, last, i, k)
                 if _chaos.is_active():
-                    data = _chaos.poison_tree("carry_nan", data, step=i)
+                    data = _chaos.poison_tree("carry_nan", data, step=i,
+                                              parts=self._parts)
             dt = time.perf_counter() - t0
             if self.checks:
                 _checks.assert_costs_finite(
@@ -444,7 +462,8 @@ class IterativeDriver:
                 if self.update_replicated is not None:
                     rep = self.update_replicated(rep, out)
             if _chaos.is_active():
-                data = _chaos.poison_tree("carry_nan", data, step=i)
+                data = _chaos.poison_tree("carry_nan", data, step=i,
+                                          parts=self._parts)
             if ema is not None and dt > self.straggler_factor * ema:
                 self.log.straggler_steps.append(i)
                 if self._checkpoints_stragglers:
@@ -678,15 +697,32 @@ class BatchedDriver:
         # every rank's lanes, then the chunk's sync
         return state, _host_costs(compat.all_gather(costs, self.lanes, 1))
 
+    @property
+    def _parts(self):
+        """``carry_nan``'s layout of the lanes under a mesh: this rank's
+        block of the current lanes."""
+        if not self.lanes:
+            return None
+        return (self.lanes.rank, self.lanes.size,
+                lambda path: self.data_axes.get(path[0], 0))
+
+    def _poison(self, state, i: int):
+        return dict(state, d=_chaos.poison_tree(
+            "carry_nan", state["d"], step=i, parts=self._parts))
+
     def _dispatch_supervised(self, state, mask, i: int, k: int):
         """The chunk, the ``carry_nan`` fault point, and one transfer of
-        the (K, B) costs with the state's finite flag."""
+        the (K, B) costs with the state's finite flag (under a mesh every
+        rank's lanes and verdict, gathered and summed first)."""
         state, trace = self._launch_chunk(state, mask, i, k)
         if _chaos.is_active():
-            state = dict(state, d=_chaos.poison_tree("carry_nan",
-                                                     state["d"], step=i))
-        costs, finite = host_costs_and_flag(
-            trace, finite_flag({"d": state["d"], "r": state["r"]}))
+            state = self._poison(state, i)
+        costs = trace["cost"] if isinstance(trace, dict) else trace
+        costs = compat.all_gather(costs, self.lanes, 1)
+        flag = finite_flag({"d": state["d"], "r": state["r"]})
+        if self.lanes:
+            flag = mesh_flag(flag, self.lanes, self.device)
+        costs, finite = host_costs_and_flag(costs, flag)
         return state, costs, finite
 
     def _log_chunk(self, costs, dt: float, i: int, k: int) -> None:
@@ -912,8 +948,7 @@ class BatchedDriver:
             else:
                 state, costs = self._dispatch_chunk(self.state, mask, i, k)
                 if _chaos.is_active():
-                    state = dict(state, d=_chaos.poison_tree(
-                        "carry_nan", state["d"], step=i))
+                    state = self._poison(state, i)
             self.state = state
             dt = time.perf_counter() - t0
             if self.checks:

@@ -37,9 +37,11 @@ partial results over the mesh's data axes, and ``Solution.x`` is the
 whole result on every rank.  Checkpoints are written one shard per
 rank and restore under any number of ranks.  ``solve_many(mesh=)``
 splits each bucket's instances across the ranks instead (instances
-never sum into each other), with filler lanes when they do not divide.
-Supervision under a mesh (``resilience=`` with ``mesh=``) is not ported
-and raises, naming its ROADMAP item (A16).
+never sum into each other, and each rank builds only its own), with
+filler lanes when they do not divide.
+``resilience=`` composes with ``mesh=``: every recovery decision is taken
+by every rank together, and every rank returns the same
+``Solution.recovery`` (``resilience.supervisor``).
 """
 from __future__ import annotations
 
@@ -334,19 +336,12 @@ def _check_checkpoint_args(opts: RunOptions, checkpoint_dir, resume) -> None:
             "written")
 
 
-def _check_mesh(mesh, opts: RunOptions) -> None:
-    """``mesh=`` must be a mesh, and supervision does not run under one
-    yet."""
-    if mesh is None:
-        return
-    if not compat.is_mesh(mesh):
+def _check_mesh(mesh) -> None:
+    """``mesh=`` must be a mesh."""
+    if mesh is not None and not compat.is_mesh(mesh):
         raise TypeError(f"mesh= must be a torch.distributed DeviceMesh "
                         f"(repro_torch.launch.mesh.make_mesh), got "
                         f"{type(mesh).__name__}")
-    if opts.resilience is not None:
-        raise NotImplementedError(
-            "resilience= under a mesh is not ported yet (ROADMAP A16, "
-            "supervision and serving under a mesh)")
 
 
 def _init_bundle(problem: Problem, inputs, device, mesh) -> Bundle:
@@ -419,11 +414,15 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
     Under ``mesh=`` every rank makes this call with the same inputs and
     gets the same ``Solution.x`` (module docstring); each writes its own
     checkpoint shard, and a resume restores its block of records from
-    the shards of any number of ranks.
+    the shards of any number of ranks.  Supervised, every rank takes the
+    same recovery decisions and gets the same ``Solution.recovery``; a
+    fault one rank meets alone after its chunk issued a collective
+    raises ``MeshFaultError`` on every rank (recover with
+    ``resume=True`` in a new process group).
     """
     problem = _as_problem(problem, cfg)
     opts = _resolved_options(problem, options, run_opts)
-    _check_mesh(mesh, opts)
+    _check_mesh(mesh)
     _check_checkpoint_args(opts, checkpoint_dir, resume)
     bundle = _init_bundle(problem, inputs, resolve_device(device), mesh)
     start_iter = 0
@@ -524,7 +523,7 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
     """
     problem = _as_problem(problem, cfg)
     opts = _resolved_options(problem, options, run_opts)
-    _check_mesh(mesh, opts)
+    _check_mesh(mesh)
     instances = [tuple(inst) for inst in instances]
     if not instances:
         return []
@@ -572,16 +571,24 @@ def solve_many(problem: Union[str, Problem, Type[Problem]], instances, *,
 
 
 def stack_bucket(problem: Problem, bucket: batching.Bucket, instances,
-                 device) -> Tuple[Dict[str, Any], Dict[str, Any],
-                                  Dict[str, int]]:
+                 device, rows=None) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                             Dict[str, int]]:
     """One bucket's batched state ``{"d", "r"}``, its shared replicated
     tree and the data leaves' record axes (where each carries its
-    instance axis)."""
+    instance axis).  ``rows`` (positions in ``bucket.indices``, default
+    all of them, a position again for a copy) selects the lanes to
+    stack."""
+    if rows is None:
+        rows = range(len(bucket.indices))
     # init_bundle runs per instance on the UNPADDED inputs, so derived
     # state (operator norms, step sizes) is the single solve's; padding
     # goes onto the built bundle, where zero records are inert
-    bundles = [problem.init_bundle(instances[j], device)
-               for j in bucket.indices]
+    built: Dict[int, Bundle] = {}
+    for row in rows:
+        if row not in built:
+            built[row] = problem.init_bundle(
+                instances[bucket.indices[row]], device)
+    bundles = [built[row] for row in rows]
     rec_axes = dict(bundles[0].record_axes)
     shared_keys = tuple(problem.batch_axes().shared_in_batch)
     missing = [k for k in shared_keys if k not in bundles[0].replicated]
@@ -601,24 +608,15 @@ def stack_bucket(problem: Problem, bucket: batching.Bucket, instances,
     return state, shared, rec_axes
 
 
-def _rank_lanes(state, rec_axes: Dict[str, int], orig: np.ndarray,
-                lanes: compat.Axes):
-    """A bucket's state cut to this rank's block of lanes: filler lanes
-    (copies of the last, ``orig`` -1) first make the batch divide across
-    the ranks, as the JAX package pads a bucket for its mesh."""
-    axes = engine.state_axes(state, rec_axes)
-    need = (-len(orig)) % lanes.size
-    if need:
-        def fill(x, a):
-            return torch.cat([x] + [x.narrow(a, x.shape[a] - 1, 1)] * need,
-                             dim=a)
-
-        state = persistence.map_with_axes(fill, state, axes)
-        orig = np.concatenate([orig, np.full(need, -1, np.int64)])
-    lo, hi = compat.block_range(len(orig), lanes)
-    state = persistence.map_with_axes(
-        lambda x, a: x.narrow(a, lo, hi - lo).contiguous(), state, axes)
-    return state, orig
+def _rank_rows(n: int, lanes: compat.Axes) -> List[int]:
+    """This rank's rows of a bucket of ``n`` lanes across ``lanes``:
+    filler lanes (copies of the last, ``orig`` -1) first make the lanes
+    divide across the ranks, as the JAX package pads a bucket for its
+    mesh; each rank builds only its own lanes (instances never
+    interact)."""
+    rows = list(range(n)) + [n - 1] * ((-n) % lanes.size)
+    lo, hi = compat.block_range(len(rows), lanes)
+    return rows[lo:hi]
 
 
 def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
@@ -626,11 +624,14 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
                 checkpoint_dir, resume, recompact_below: float,
                 solutions: List[Optional[Solution]]) -> None:
     """Stack, run and unstack one bucket, writing its Solutions."""
-    state, shared, rec_axes = stack_bucket(problem, bucket, instances,
-                                           device)
     orig = np.asarray(bucket.indices, dtype=np.int64)
+    rows = None
     if lanes:
-        state, orig = _rank_lanes(state, rec_axes, orig, lanes)
+        rows = _rank_rows(len(orig), lanes)
+        need = (-len(orig)) % lanes.size
+        orig = np.concatenate([orig, np.full(need, -1, np.int64)])
+    state, shared, rec_axes = stack_bucket(problem, bucket, instances,
+                                           device, rows)
     bopts = opts
     writer = None
     bdir = None

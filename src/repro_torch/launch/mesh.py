@@ -14,6 +14,13 @@ on a host without a card.  ``device="cpu"`` is for gloo groups, as the
 tests use.  A gloo group over CUDA tensors (``device="cuda"`` under
 ``init_process_group("gloo")``) also works, and is how several ranks
 share one card.
+
+Each mesh also gets its control plane on the host
+(``core.compat.control_of``): a gloo group over the same ranks (the
+default group itself when that is gloo's), on which the supervisor's
+votes and the service's dispatches travel without waiting for a card.
+``make_mesh`` builds it with the mesh, so every rank enters its groups
+in the same order.
 """
 from __future__ import annotations
 
@@ -57,8 +64,12 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None):
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         torch.cuda.set_device(local % torch.cuda.device_count())
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh(kind, torch.arange(world).reshape(shape),
+
+    from repro_torch.core.compat import control_of
+    mesh = DeviceMesh(kind, torch.arange(world).reshape(shape),
                       mesh_dim_names=axes)
+    control_of(mesh)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

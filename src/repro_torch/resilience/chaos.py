@@ -50,7 +50,7 @@ import contextlib
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,13 +197,21 @@ def _replace(tree: Any, path: Tuple, value: Any) -> Any:
     return type(tree)(items)
 
 
-def poison_tree(point: str, tree, *, step: Optional[int] = None):
+def poison_tree(point: str, tree, *, step: Optional[int] = None,
+                parts: Optional[Tuple[int, int, Callable]] = None):
     """When ``point`` fires, set one seeded element of one seeded float
     leaf of ``tree`` to NaN — the injected analogue of a diverged
     iterate.  Out of place (the poisoned leaf is a new tensor; the tree
     the caller passed stays intact) and without a host sync: the
     element's position comes from the leaf's shape.  Returns ``tree``
-    itself when chaos is inactive or the point does not fire."""
+    itself when chaos is inactive or the point does not fire.
+
+    ``parts=(index, count, axis_of)`` under a mesh: ``tree`` holds this
+    rank's block (``index`` of ``count``) of each leaf along the axis
+    ``axis_of(path)`` (``None``: the leaf is the same on every rank).
+    The element is drawn in the global leaf, as the JAX package poisons
+    its global array, and only the rank that holds it poisons; every
+    rank draws the same numbers, so their plans stay in step."""
     st = _STATE
     if st is None:
         return tree
@@ -217,12 +225,24 @@ def poison_tree(point: str, tree, *, step: Optional[int] = None):
         return tree
     path, leaf = leaves[int(st.rng.choice(float_idx))]
     if leaf.dim() == 0:
-        new = torch.full_like(leaf, float("nan"))
-    else:
-        flat = leaf.reshape(-1).clone()
-        flat[int(st.rng.integers(flat.shape[0]))] = float("nan")
-        new = flat.reshape(leaf.shape)
-    return _replace(tree, path, new)
+        return _replace(tree, path, torch.full_like(leaf, float("nan")))
+    shape = list(leaf.shape)
+    index, count, axis = 0, 1, None
+    if parts is not None:
+        index, count, axis_of = parts
+        axis = axis_of(path)
+    whole = list(shape)
+    if axis is not None:
+        whole[axis] *= count
+    at = list(np.unravel_index(int(st.rng.integers(int(np.prod(whole)))),
+                               whole))
+    if axis is not None:
+        if at[axis] // shape[axis] != index:
+            return tree                 # another rank's element
+        at[axis] %= shape[axis]
+    flat = leaf.reshape(-1).clone()
+    flat[int(np.ravel_multi_index(at, shape))] = float("nan")
+    return _replace(tree, path, flat.reshape(leaf.shape))
 
 
 def corrupt_checkpoint_files(point: str, directory, *,

@@ -19,6 +19,10 @@ Every exception that escapes a chunk dispatch goes through
 
 Divergence (a non-finite state or cost at a chunk boundary) is neither:
 it is raised as :class:`DivergenceError` and handled by rollback.
+
+Under a mesh a fault that one rank meets alone after its chunk issued a
+collective cannot be retried (its peers are past that collective): it
+becomes the fatal :class:`MeshFaultError` on every rank.
 """
 from __future__ import annotations
 
@@ -61,6 +65,16 @@ class ResilienceExhausted(ResilienceError):
     checkpoint left to fall back to."""
 
 
+class MeshFaultError(ResilienceError):
+    """Under a mesh: a fault one rank met alone after its chunk had
+    issued a collective (the other ranks did not vote to retry within
+    the bounded wait), or a peer's such fault.  The rank that met it
+    tears the process groups down (``core.compat.tear_down``) so that
+    its peers raise instead of waiting in a collective.  Fatal: recover
+    with ``solve(..., resume=True)`` from the sharded checkpoints, in a
+    new process group."""
+
+
 #: exception types retried without further inspection
 _TRANSIENT_TYPES: Tuple[type, ...] = (InjectedFault, OSError,
                                       TimeoutError, ConnectionError)
@@ -88,7 +102,8 @@ def classify(exc: BaseException, extra_transient: Tuple[type, ...] = ()
     """``"transient"`` (retry from the snapshot) or ``"fatal"``
     (re-raise).  Divergence and an exhausted budget are the
     supervisor's own control flow and never retried."""
-    if isinstance(exc, (DivergenceError, ResilienceExhausted)):
+    if isinstance(exc, (DivergenceError, ResilienceExhausted,
+                        MeshFaultError)):
         return "fatal"
     if _card_fatal(exc):
         return "fatal"

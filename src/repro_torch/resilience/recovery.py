@@ -9,7 +9,7 @@ resilience=ResilienceConfig(...))`` and carried on ``RunOptions``;
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -76,6 +76,46 @@ class RecoveryReport:
     faults: List[dict] = field(default_factory=list)
     kernel_fallbacks: List[dict] = field(default_factory=list)
     wall_time_lost_s: float = 0.0
+
+    @classmethod
+    def merged(cls, parts: List["RecoveryReport"]) -> "RecoveryReport":
+        """One report of a mesh run from every rank's (in rank order),
+        the same on every rank.  A fault's ``"key"`` (the chunk's
+        ordinal, the kind, the attempt) pairs the ranks' entries: a
+        divergence is one decision of every rank (the entry of the
+        lowest rank whose own state or costs showed it); a dispatch
+        fault every rank met counts once, one that some ranks met alone
+        once per rank, each entry naming its ``"rank"``.  Rollbacks and
+        restores are collective; ``wall_time_lost_s`` is the largest."""
+        by_key: Dict[tuple, list] = {}
+        for rank, part in enumerate(parts):
+            for f in part.faults:
+                by_key.setdefault(tuple(f["key"]), []).append((rank, f))
+        faults, retries = [], 0
+
+        def plain(f):
+            return {k: v for k, v in f.items()
+                    if k not in ("key", "retried", "local")}
+
+        for key in sorted(by_key):
+            entries = by_key[key]
+            if entries[0][1]["point"] == "divergence":
+                pick = next((f for _, f in entries if f.get("local")),
+                            entries[0][1])
+                faults.append(plain(pick))
+            elif len(entries) == len(parts):
+                faults.append(plain(entries[0][1]))
+                retries += bool(entries[0][1].get("retried"))
+            else:
+                for rank, f in entries:
+                    faults.append({**plain(f), "rank": rank})
+                    retries += bool(f.get("retried"))
+        first = parts[0]
+        return cls(retries=retries, rollbacks=first.rollbacks,
+                   checkpoint_restores=first.checkpoint_restores,
+                   faults=faults,
+                   kernel_fallbacks=[dict(e) for e in first.kernel_fallbacks],
+                   wall_time_lost_s=max(p.wall_time_lost_s for p in parts))
 
     def record_fault(self, point: str, step, exc: BaseException) -> None:
         self.faults.append({

@@ -31,6 +31,34 @@ happens when it fails*:
 
 ``kernel_fallbacks`` stays empty: the port retries a failed kernel, it
 never degrades one (``kernels/common.py``).
+
+Under a mesh (SPMD: one process per rank, ``core.compat``) every
+recovery decision is one decision of every rank, taken on the mesh's
+control plane on the host (``compat.Control``), never by a rank alone:
+
+- the finite flag is per rank; :func:`mesh_flag` sums the ranks' flags
+  in one all-reduce on the device group before the chunk's one host
+  sync, so every rank reads the same verdict (and which ranks' shards
+  were not finite) with the same global costs, and rolls back to the
+  same ring entry (each entry holds the rank's own shard references);
+- a transient fault a rank catches before its chunk issued any
+  collective (``compat.COLLECTIVES``) is retried on that rank alone:
+  its peers wait in the chunk's first collective, and the retry issues
+  the same sequence.  Caught after a collective (or not to be retried),
+  it goes to a vote on the control plane with a bounded wait
+  (:data:`VOTE_TIMEOUT_S`): when every rank votes the same (the
+  replicated chaos plan fires on every rank at the same call) they act
+  together; otherwise the rank raises
+  :class:`~repro_torch.resilience.errors.MeshFaultError` and tears the
+  process groups down (``compat.tear_down``), and its peers raise it
+  too: on gloo from the collective they were in, on NCCL once the
+  mesh's watch has aborted their communicators (that chunk's values are
+  void, so each chunk's end under a mesh checks ``Control.aborted``, a
+  host flag);
+- the disk fallback restores the newest step every rank finds valid
+  (agreed over the control plane), each rank its own records;
+- the :class:`RecoveryReport` is merged over the control plane when the
+  run ends (``RecoveryReport.merged``): the same on every rank.
 """
 from __future__ import annotations
 
@@ -43,12 +71,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import checks as _checks
+from repro_torch.core import compat
 from repro_torch.core.bundle import Bundle
 from repro_torch.core.checks import leaves_with_path
 from repro_torch.resilience import chaos as _chaos
-from repro_torch.resilience.errors import (DivergenceError,
+from repro_torch.resilience.errors import (DivergenceError, MeshFaultError,
                                            ResilienceExhausted, classify)
 from repro_torch.resilience.recovery import RecoveryReport, ResilienceConfig
+
+# how long a rank that met a fault past a collective waits for the other
+# ranks' votes under a mesh (seconds)
+VOTE_TIMEOUT_S = 10.0
 
 
 def _leaf_finite(x: torch.Tensor) -> torch.Tensor:
@@ -73,40 +106,123 @@ def finite_flag(tree: Any) -> Optional[torch.Tensor]:
     return torch.stack(flags).all()
 
 
-def host_costs_and_flag(trace, flag: Optional[torch.Tensor]
-                        ) -> Tuple[np.ndarray, bool]:
+def mesh_flag(flag: Optional[torch.Tensor], axes, device) -> torch.Tensor:
+    """Every rank's verdict: a (size,) tensor, entry r 1 when rank r's
+    state is not finite — this rank's :func:`finite_flag` at its index,
+    summed over ``axes`` in one all-reduce.  Enqueued, not read."""
+    bad = torch.zeros(axes.size, dtype=torch.float32, device=device)
+    if flag is not None:
+        bad[axes.rank] = (~flag).to(bad.dtype)
+    return compat.psum(bad, axes)
+
+
+def host_costs_and_flag(trace, flag: Optional[torch.Tensor]):
     """The chunk's one host sync under supervision: its cost trace and
-    the state's finite flag in one transfer."""
+    the state's finite flag in one transfer.  The verdict is a bool for
+    a 0-d flag, and for a :func:`mesh_flag` the tuple of the ranks'
+    verdicts (``True``: finite)."""
     costs = trace["cost"] if isinstance(trace, dict) else trace
     if flag is None:
         return costs.detach().cpu().numpy(), True
+    n = flag.numel()
     both = torch.cat([costs.detach().reshape(-1),
-                      flag.reshape(1).to(costs.dtype)]).cpu().numpy()
-    return both[:-1].reshape(tuple(costs.shape)), bool(both[-1] != 0)
+                      flag.reshape(-1).to(costs.dtype)]).cpu().numpy()
+    head = both[:-n].reshape(tuple(costs.shape))
+    if flag.dim() == 0:
+        return head, bool(both[-1] != 0)
+    return head, tuple(bool(v == 0) for v in both[-n:])
 
 
-def _validate(costs, finite: bool, state, what: str, it: int) -> None:
+def _validate(costs, finite, state, what: str, it: int,
+              rank: int = 0) -> None:
     """Raise :class:`DivergenceError` for a NaN or -inf objective, or a
     state whose finite flag read false (then the state is searched on
-    the host for the message)."""
+    the host for the message).  Under a mesh ``finite`` holds every
+    rank's verdict: each rank searches its own shard, and one whose
+    shard is finite names the ranks whose shards are not.  The error's
+    ``local`` tells whether this rank's own costs or state showed the
+    divergence (the merged report keeps such a rank's message)."""
+    ranks = finite if isinstance(finite, tuple) else (bool(finite),)
+    bad = [r for r, ok in enumerate(ranks) if not ok]
+    named = f" (not finite on rank(s) {bad} of {len(ranks)})" \
+        if len(ranks) > 1 and bad else ""
+    local = True
     try:
         _checks.assert_costs_finite(costs, f"resilience: {what} ending at "
                                            f"iteration {it}")
-        if not finite:
+        if rank in bad:
             _checks.assert_all_finite(state, f"resilience: {what} state "
                                              f"after iteration {it}")
             raise _checks.CheckError(
                 f"resilience: {what} state after iteration {it} is not "
                 f"finite (device reduction)")
+        if bad:
+            local = False
+            raise _checks.CheckError(f"resilience: {what} state after "
+                                     f"iteration {it} is not finite")
     except _checks.CheckError as e:
-        raise DivergenceError(str(e), step=it) from e
+        err = DivergenceError(str(e) + named, step=it)
+        err.local = local
+        raise err from e
+
+
+class _MeshPlane:
+    """A supervisor's collective side under a mesh: the control plane,
+    the run's key, the votes and the disk agreement."""
+
+    def __init__(self, axes):
+        self.ctl = axes.control
+        if self.ctl is None:
+            raise ValueError("supervision under a mesh needs the mesh's "
+                             "control plane (axes from compat.axes_of)")
+        self.run = self.ctl.next_id()
+
+    def check_peers(self, err: Optional[BaseException] = None) -> None:
+        """Raise :class:`MeshFaultError` when a rank declared a fault:
+        after an error, which the torn-down groups then explain (the
+        store is read), or, with ``err`` None, after a chunk whose NCCL
+        work this rank's watch aborted (a host flag: no store read)."""
+        reason = self.ctl.aborted
+        if reason is None and err is not None:
+            reason = self.ctl.fault()
+        if reason is not None:
+            compat.tear_down(reason)
+            raise MeshFaultError(f"rank {self.ctl.rank}: a peer met a "
+                                 f"fault alone: {reason}") from err
+
+    def agree(self, key: tuple, ballot: str, err: BaseException,
+              what: str) -> None:
+        """Every rank votes ``ballot`` under ``key`` within the bounded
+        wait, or this rank tears the mesh down and raises."""
+        if self.ctl.vote(self.ctl.key("run", self.run, *key), ballot,
+                         VOTE_TIMEOUT_S):
+            return
+        reason = (f"rank {self.ctl.rank}: {what} ({type(err).__name__}: "
+                  f"{err}); the other ranks did not vote {ballot!r} "
+                  f"within {VOTE_TIMEOUT_S} s")
+        compat.tear_down(reason)
+        raise MeshFaultError(reason) from err
+
+    def agreed_step(self, directory) -> Optional[int]:
+        """The newest checkpoint step that every rank finds valid."""
+        from repro_torch.checkpoint import checkpointer as ckpt
+        bound = None
+        while True:
+            mine, _ = ckpt.latest_valid_step(directory, at_most=bound)
+            steps = self.ctl.gather(mine)
+            if any(s is None for s in steps):
+                return None
+            low = min(steps)
+            if all(s == low for s in steps):
+                return low
+            bound = low
 
 
 class _Budget:
     """Retry with backoff and the rollback budget, shared by both
     supervisors."""
 
-    def __init__(self, cfg: ResilienceConfig):
+    def __init__(self, cfg: ResilienceConfig, axes=compat.NO_AXES):
         self.cfg = cfg
         self.report = RecoveryReport()
         self.ring: deque = deque(maxlen=cfg.ring)
@@ -116,6 +232,17 @@ class _Budget:
                                          else seed)
         self._rollbacks_done = 0
         self._last_restored_it: Optional[int] = None
+        self.mesh = _MeshPlane(axes) if axes else None
+        self.rank = axes.rank if axes else 0
+        # chunks begun: the same count on every rank of a mesh
+        self._seq = 0
+        self._merged: Optional[RecoveryReport] = None
+
+    def _tag(self, kind: int, attempt: int, **extra) -> None:
+        """Under a mesh, key the newest fault for the merged report."""
+        if self.mesh is not None:
+            self.report.faults[-1].update(key=(self._seq, kind, attempt),
+                                          **extra)
 
     def _backoff(self, attempt: int) -> float:
         base = self.cfg.backoff_s * self.cfg.backoff_factor ** attempt
@@ -129,11 +256,31 @@ class _Budget:
         attempt = 0
         while True:
             t0 = time.perf_counter()
+            n0 = compat.COLLECTIVES["launches"]
             try:
-                return fn(*args)
+                out = fn(*args)
+                if self.mesh is not None:
+                    self.mesh.check_peers()
+                return out
+            except MeshFaultError:
+                raise
             except Exception as e:
+                if self.mesh is not None:
+                    self.mesh.check_peers(e)
                 kind = classify(e, self.cfg.transient_types)
+                again = kind == "transient" and \
+                    attempt < self.cfg.max_retries
                 self.report.record_fault("dispatch", i, e)
+                self._tag(0, attempt, retried=again)
+                issued = compat.COLLECTIVES["launches"] - n0
+                if self.mesh is not None and (issued or not again):
+                    # past a collective the peers cannot follow this
+                    # rank alone: every rank acts together or none
+                    self.mesh.agree(
+                        ("dispatch", self._seq, attempt),
+                        f"{issued}:{'retry' if again else 'raise'}", e,
+                        f"{what} at iteration {i} failed after {issued} "
+                        f"collectives of the chunk")
                 self.report.wall_time_lost_s += time.perf_counter() - t0
                 if kind != "transient":
                     raise
@@ -152,6 +299,7 @@ class _Budget:
         """Book one rollback and return the ring entry to restore, or
         ``None`` when the ring is dry (the caller goes to disk)."""
         self.report.record_fault("divergence", err.step, err)
+        self._tag(1, 0, local=getattr(err, "local", True))
         if self._rollbacks_done >= self.cfg.max_rollbacks:
             raise self._exhausted(
                 f"rollback budget ({self.cfg.max_rollbacks}) exhausted; "
@@ -172,7 +320,11 @@ class _Budget:
                 "snapshot ring exhausted and no checkpoint_dir to fall "
                 "back to; latest divergence: " + str(err)) from err
         from repro_torch.checkpoint import checkpointer as ckpt
-        step, _skipped = ckpt.latest_valid_step(self.cfg.checkpoint_dir)
+        if self.mesh is not None:
+            step = self.mesh.agreed_step(self.cfg.checkpoint_dir)
+        else:
+            step, _skipped = ckpt.latest_valid_step(
+                self.cfg.checkpoint_dir)
         if step is None:
             raise self._exhausted(
                 f"snapshot ring exhausted and no valid checkpoint under "
@@ -188,7 +340,15 @@ class _Budget:
         return err
 
     def finalize(self) -> RecoveryReport:
-        return self.report
+        """The run's report; under a mesh merged over the control plane
+        (every rank calls this at the same point: the run's end, or a
+        budget every rank exhausted together)."""
+        if self.mesh is None:
+            return self.report
+        if self._merged is None:
+            self._merged = RecoveryReport.merged(
+                self.mesh.ctl.gather(self.report))
+        return self._merged
 
 
 @dataclass(frozen=True)
@@ -207,12 +367,13 @@ class Supervisor(_Budget):
 
     def __init__(self, cfg: ResilienceConfig, bundle: Bundle, *,
                  start_iter: int = 0):
-        super().__init__(cfg)
+        super().__init__(cfg, bundle.axes)
         self.bundle = bundle
         self.start_iter = start_iter
 
     def begin_chunk(self, data, rep, last, it: int, n_logged: int) -> None:
         """Push the chunk-start carry onto the ring (no copy)."""
+        self._seq += 1
         self.ring.append(_Snapshot(it=it, n_logged=n_logged, data=data,
                                    rep=rep, last=last))
 
@@ -226,9 +387,9 @@ class Supervisor(_Budget):
         return self._retry(fn, (data, rep, last, i, k), i, restart,
                            "chunk dispatch")
 
-    def validate(self, data, rep, costs, finite: bool, it: int) -> None:
+    def validate(self, data, rep, costs, finite, it: int) -> None:
         _validate(costs, finite, {"data": data, "replicated": rep},
-                  "chunk", it)
+                  "chunk", it, self.rank)
 
     def rollback(self, err: DivergenceError, log) -> Tuple[Any, Any, Any,
                                                            int]:
@@ -253,9 +414,10 @@ class Supervisor(_Budget):
     def _restore_from_disk(self, err: DivergenceError):
         from repro_torch.checkpoint import checkpointer as ckpt
         directory, step = self._latest_on_disk(err)
+        b = self.bundle
         state, _ = ckpt.restore(directory, step,
-                                {"data": self.bundle.data,
-                                 "replicated": self.bundle.replicated})
+                                {"data": b.data, "replicated": b.replicated},
+                                records=b.record_range if b.axes else None)
         self.report.checkpoint_restores += 1
         # the carried output restarts from its +inf seed, as after a
         # resume
@@ -272,11 +434,12 @@ class BatchSupervisor(_Budget):
     (``BatchedDriver.snapshot_payload``)."""
 
     def __init__(self, cfg: ResilienceConfig, driver):
-        super().__init__(cfg)
+        super().__init__(cfg, driver.lanes)
         self.driver = driver
 
     def begin_chunk(self, it: int) -> None:
         d = self.driver
+        self._seq += 1
         self.ring.append({
             "it": it, "state": d.state,
             "slots": d.slots.copy(), "active": d.active.copy(),
@@ -291,10 +454,10 @@ class BatchSupervisor(_Budget):
         return self._retry(fn, (state, mask, i, k), i, restart,
                            "bucket chunk dispatch")
 
-    def validate(self, state, costs, finite: bool, it: int) -> None:
+    def validate(self, state, costs, finite, it: int) -> None:
         _validate(costs, finite, {"data": state["d"],
                                   "replicated": state["r"]},
-                  "bucket chunk", it)
+                  "bucket chunk", it, self.rank)
 
     def _restore(self, snap) -> int:
         d = self.driver
@@ -332,7 +495,8 @@ class BatchSupervisor(_Budget):
         directory, step = self._latest_on_disk(err)
         d = self.driver
         payload, _ = ckpt.restore(directory, step, d.payload_template(),
-                                  device=d.device)
+                                  device=d.device,
+                                  records=d.lane_range if d.lanes else None)
         d.load_payload(payload, rewind_logs=True)
         self.report.checkpoint_restores += 1
         return step

@@ -11,6 +11,12 @@ stdlib JSON-over-HTTP transport (``serve.server``) and client
     from repro_torch.serve.server import serve_http, ServiceRunner
     from repro_torch.serve.client import ServeClient
 
+Under a mesh rank 0 serves (``serve_http(mesh=)``) and every other rank
+runs :func:`follow`, making each call rank 0 dispatches::
+
+    from repro_torch.serve import follow
+    follow(mesh)                 # returns when rank 0's service closes
+
 ``python -m repro_torch.serve.drill`` runs the three serving drills.
 """
 from repro_torch.serve.breaker import CircuitBreaker
@@ -19,10 +25,10 @@ from repro_torch.serve.journal import (ReplayPlan, RequestJournal,
 from repro_torch.serve.metrics import Metrics
 from repro_torch.serve.service import (AsyncSolveService, RequestRecord,
                                        RequestRejected, ServeConfig,
-                                       SolveRequest)
+                                       SolveRequest, follow)
 
 __all__ = [
     "AsyncSolveService", "CircuitBreaker", "Metrics", "ReplayPlan",
     "RequestJournal", "RequestRecord", "RequestRejected", "ServeConfig",
-    "SolveRequest", "journal_pending",
+    "SolveRequest", "follow", "journal_pending",
 ]

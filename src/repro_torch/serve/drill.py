@@ -24,6 +24,10 @@ solver stack on tiny deconvolution instances (the port's own
   bucket's cost trajectory matches the reference suffix at rtol 1e-4,
   and final iterates match.
 
+Each takes ``mesh=`` too: the service then runs on rank 0 of the mesh
+(the direct references stay single-process solves) while the other
+ranks run ``serve.follow(mesh)``; the service's close releases them.
+
 Run as a module::
 
     PYTHONPATH=src python -m repro_torch.serve.drill --scenario all \
@@ -124,12 +128,15 @@ def _recovery_json(rec) -> Optional[dict]:
 
 
 # ------------------------------------------------------------ scenarios
-def drill_poison_bucket(device=None) -> dict:
+def drill_poison_bucket(device=None, mesh=None) -> dict:
     from repro_torch.resilience.recovery import ResilienceConfig
     from repro_torch.serve import AsyncSolveService, ServeConfig
 
     # same stamp everywhere so all three lanes coalesce into ONE bucket
-    insts = _instances([(3, 16), (5, 16), (4, 16)], device)
+    # (under a mesh each lane's stamps split over its ranks in its solo
+    # re-run, so there are as many times more of them)
+    k = mesh.size() if mesh is not None else 1
+    insts = _instances([(3 * k, 16), (5 * k, 16), (4 * k, 16)], device)
     refs = [_direct(i, device) for i in insts]
     # one lane of the coalesced bucket is poisoned; ring stays small so
     # the rollback loop exhausts fast (NaN is in the input, rollback
@@ -139,7 +146,7 @@ def drill_poison_bucket(device=None) -> dict:
     async def run():
         cfg = ServeConfig(batch_window_s=0.5, max_batch=8,
                           chaos_spec="serve_bucket_poison@0;seed=7")
-        svc = AsyncSolveService(cfg, device=device)
+        svc = AsyncSolveService(cfg, mesh=mesh, device=device)
         await svc.start()
         opts = _options()
         opts["resilience"] = res
@@ -156,7 +163,8 @@ def drill_poison_bucket(device=None) -> dict:
         f"drill lanes did not coalesce into one bucket: {keys}"
     failed = [r for r in out if r.status == "failed"]
     assert len(failed) == 1, \
-        f"exactly one lane should fail, got {len(failed)}"
+        f"exactly one lane should fail, got {len(failed)}: " \
+        f"{[(r.id, r.error) for r in failed]}"
     poisoned = failed[0]
     assert poisoned.quarantined, "poisoned lane not quarantined"
     assert poisoned.recovery is not None, \
@@ -178,7 +186,7 @@ def drill_poison_bucket(device=None) -> dict:
     }
 
 
-def drill_deadline_storm(device=None) -> dict:
+def drill_deadline_storm(device=None, mesh=None) -> dict:
     from repro_torch.serve import AsyncSolveService, ServeConfig
 
     insts = _instances([(3, 16), (5, 16), (3, 20), (4, 20)], device)
@@ -190,7 +198,7 @@ def drill_deadline_storm(device=None) -> dict:
 
     async def run():
         cfg = ServeConfig(batch_window_s=0.5, max_batch=8)
-        svc = AsyncSolveService(cfg, device=device)
+        svc = AsyncSolveService(cfg, mesh=mesh, device=device)
         await svc.start()
         # two undeadlined controls coalesce with two doomed requests
         # whose deadline cannot cover their iteration budget
@@ -224,8 +232,8 @@ def drill_deadline_storm(device=None) -> dict:
     }
 
 
-def drill_kill_and_restart(device=None, workdir: Optional[str] = None
-                           ) -> dict:
+def drill_kill_and_restart(device=None, workdir: Optional[str] = None,
+                           mesh=None) -> dict:
     from repro_torch.serve import AsyncSolveService, ServeConfig
 
     base = Path(workdir or tempfile.mkdtemp(prefix="repro-drill-"))
@@ -244,7 +252,7 @@ def drill_kill_and_restart(device=None, workdir: Optional[str] = None
         # admit 2 coalescing requests; the 3rd is journaled but never
         # scheduled (serve_admit_drop); the crash lands mid-bucket
         svc = AsyncSolveService(
-            mk_cfg("serve_admit_drop@2;serve_crash@1;seed=5"),
+            mk_cfg("serve_admit_drop@2;serve_crash@1;seed=5"), mesh=mesh,
             device=device)
         await svc.start()
         ids = []
@@ -262,7 +270,7 @@ def drill_kill_and_restart(device=None, workdir: Optional[str] = None
     assert crashed, "serve_crash never fired — drill misconfigured"
 
     async def phase2():
-        svc = AsyncSolveService(mk_cfg(None), device=device)
+        svc = AsyncSolveService(mk_cfg(None), mesh=mesh, device=device)
         await svc.start()
         out = [await svc.result(i, timeout=600) for i in ids]
         metrics = svc.metrics.snapshot()

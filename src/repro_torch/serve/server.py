@@ -37,7 +37,10 @@ Input arrays arrive as lossless array records (``serve.codec``, what
 dicts and are decoded through the port's per-workload config dataclass.
 The codecs live in ``serve.codec`` (shared with the request journal) and
 are re-exported here.  The service runs its solves on ``device``
-(``None``: ``"cuda"``).
+(``None``: ``"cuda"``), or across ``mesh=``: then this process is rank 0
+of the mesh and every other rank runs ``serve.follow(mesh)``; the
+metrics add ``input_broadcast_s``, the seconds of each dispatch's
+broadcast to the followers.
 """
 from __future__ import annotations
 
@@ -100,8 +103,9 @@ class ServiceRunner:
 
     def __init__(self, config: Optional[ServeConfig] = None, *,
                  service: Optional[AsyncSolveService] = None,
-                 device=None):
-        self.service = service or AsyncSolveService(config, device=device)
+                 mesh=None, device=None):
+        self.service = service or AsyncSolveService(config, mesh=mesh,
+                                                    device=device)
         self._loop = asyncio.new_event_loop()
         self._thread = threading.Thread(
             target=self._loop.run_forever, daemon=True,
@@ -183,6 +187,8 @@ class _Handler(BaseHTTPRequestHandler):
                 svc = self.runner.service
                 snap = svc.metrics.snapshot()
                 snap["breakers"] = svc.breaker_states()
+                if svc.mesh is not None:
+                    snap["input_broadcast_s"] = list(svc.broadcast_s)
                 return self._json(200, snap)
             if parts == ["v1", "healthz"]:
                 svc = self.runner.service
@@ -310,13 +316,16 @@ class ServerHandle:
 def serve_http(config: Optional[ServeConfig] = None, *,
                runner: Optional[ServiceRunner] = None,
                host: str = "127.0.0.1", port: int = 0,
-               verbose: bool = False, device=None) -> ServerHandle:
+               verbose: bool = False, mesh=None,
+               device=None) -> ServerHandle:
     """Start the HTTP frontend on a daemon thread (``port=0`` binds an
     ephemeral port — read it back from ``handle.address``).  Pass an
     existing ``runner`` to share a service between transports; otherwise
-    one is created and owned (and drained) by the returned handle."""
+    one is created and owned (and drained) by the returned handle.
+    ``mesh=``: this is rank 0 of the mesh, the other ranks run
+    ``serve.follow(mesh)`` until the handle closes."""
     owns = runner is None
-    runner = runner or ServiceRunner(config, device=device)
+    runner = runner or ServiceRunner(config, mesh=mesh, device=device)
     httpd = ThreadingHTTPServer((host, port), _Handler)
     httpd.daemon_threads = True
     httpd.runner = runner                    # type: ignore[attr-defined]

@@ -47,6 +47,21 @@ responsive:
   without a card refuses at once): each worker thread enters
   ``torch.cuda.device`` around its dispatch, since the current device
   is per thread.
+- **a mesh** — ``AsyncSolveService(mesh=)`` (a ``DeviceMesh`` from
+  ``launch.mesh.make_mesh``) runs every solve across the mesh's ranks,
+  on the mesh's device.  The port is SPMD, where the JAX package has one
+  controller: rank 0 runs the service (and the HTTP server and the
+  journal), every other rank runs :func:`follow`.  Each dispatch goes
+  from rank 0 to the followers over the mesh's control plane on the
+  host (``core.compat.Control``): its kind (a solo ``solve``, a
+  bucket's ``solve_many``, a quarantine's solo re-dispatch, or the
+  shutdown), the workload's name and config, the inputs in lane order
+  (rank 0 broadcasts them once; ``broadcast_s`` keeps the seconds),
+  the options and checkpoint arguments, and the request's chaos spec.
+  Lane control (cancel, deadline, the crash freeze) is decided on rank
+  0 at each chunk boundary and broadcast there, so every rank freezes
+  the same lanes at the same boundary.  A failed call fails on every
+  rank (its collectives do), and rank 0 quarantines as without a mesh.
 
 A request carrying ``chaos_spec`` (the fault-injection drill)
 always dispatches as its own singleton batch: chaos activation is
@@ -71,12 +86,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import batching
+from repro_torch.core import batching, compat
 from repro_torch.core.problem import (Solution, _as_problem,
                                       _config_fingerprint, solve,
                                       solve_many)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.errors import MeshFaultError
 from repro_torch.serve.breaker import CircuitBreaker
 from repro_torch.serve.metrics import Metrics
 
@@ -267,11 +283,30 @@ class AsyncSolveService:
     """The asyncio serving core.  All public coroutines must run on the
     loop that called :meth:`start`; transports on other threads bridge
     via ``asyncio.run_coroutine_threadsafe`` (see ``serve.server``).
-    ``device`` is where every solve runs (``None``: ``"cuda"``)."""
+    ``device`` is where every solve runs (``None``: ``"cuda"``); with
+    ``mesh=`` every solve runs across the mesh, on its device, this
+    service on rank 0 and :func:`follow` on the other ranks (module
+    docstring)."""
 
     def __init__(self, config: Optional[ServeConfig] = None, *,
-                 device=None):
+                 mesh=None, device=None):
         self.cfg = config or ServeConfig()
+        self.mesh = mesh
+        self._ctl = None
+        # seconds of each dispatch's broadcast to the followers
+        self.broadcast_s: List[float] = []
+        if mesh is not None:
+            self._ctl = compat.control_of(mesh)
+            if self._ctl.rank != 0:
+                raise ValueError("AsyncSolveService(mesh=) runs on rank 0 "
+                                 "of the mesh; the other ranks run "
+                                 "repro_torch.serve.follow(mesh)")
+            if int(self.cfg.workers) > 1:
+                raise ValueError("under a mesh one worker dispatches "
+                                 "(every rank makes the same calls in "
+                                 "the same order): workers=1")
+            if device is None:
+                device = compat.mesh_device(mesh)
         self.device = resolve_device(device)
         self.metrics = Metrics(window=self.cfg.history_window)
         self.records: Dict[str, RequestRecord] = {}
@@ -599,30 +634,50 @@ class AsyncSolveService:
             opts.setdefault("checkpoint_every", self.cfg.checkpoint_every)
             kwargs["checkpoint_dir"] = self.cfg.checkpoint_dir
             kwargs["resume"] = resume
+        kwargs["waste_budget"] = self.cfg.waste_budget
+        inputs = [r._inputs_override or r.request.inputs for r in recs]
+        self._announce("solve_many", recs[0].request, inputs, opts, kwargs)
         try:
             sols = solve_many(
-                problem,
-                [r._inputs_override or r.request.inputs for r in recs],
-                device=self.device, waste_budget=self.cfg.waste_budget,
-                progress_fn=self._relay_for_batch(recs),
-                **kwargs, **opts)
+                problem, inputs, device=self.device, mesh=self.mesh,
+                progress_fn=self._relay_for_batch(recs), **kwargs, **opts)
         except Exception as err:
-            if not self.cfg.quarantine or self._crashed:
+            if not self.cfg.quarantine or self._crashed or \
+                    isinstance(err, MeshFaultError):
                 raise
             self._quarantine(recs, problem, err)
             return
         for r, s in zip(recs, sols):
             r.solution = s
 
-    def _solve_one(self, rec: RequestRecord, problem, relay) -> Solution:
+    def _solve_one(self, rec: RequestRecord, problem, relay,
+                   kind: str = "solve") -> Solution:
         opts = dict(rec.request.options)
         inputs = rec._inputs_override or rec.request.inputs
         spec = rec.request.chaos_spec
-        ctx = _chaos.active_chaos(_chaos.ChaosConfig.parse(spec)) \
-            if spec else contextlib.nullcontext()
-        with ctx:
+        self._announce(kind, rec.request, [inputs], opts, {}, spec)
+        with _chaos_context(spec):
             return solve(problem, *inputs, device=self.device,
-                         progress_fn=relay, **opts)
+                         mesh=self.mesh, progress_fn=relay, **opts)
+
+    # ------------------------------------------------ the followers
+    def _announce(self, kind: str, request: SolveRequest, inputs, opts,
+                  kwargs, chaos_spec: Optional[str] = None) -> None:
+        """Under a mesh, send the dispatch to the followers (module
+        docstring); the inputs leave as host arrays, once."""
+        if self._ctl is None:
+            return
+        self.broadcast_s.append(_send_dispatch(self._ctl, {
+            "kind": kind, "problem": request.problem, "cfg": request.cfg,
+            "inputs": [_host_inputs(x) for x in inputs],
+            "options": opts, "kwargs": kwargs, "chaos": chaos_spec}))
+
+    def _control(self, ctl):
+        """Under a mesh, rank 0's lane control for this chunk boundary,
+        broadcast so that every rank's driver gets the same."""
+        if self._ctl is None:
+            return ctl
+        return self._ctl.broadcast(ctl)
 
     def _quarantine(self, recs: List[RequestRecord], problem,
                     err: BaseException) -> None:
@@ -642,7 +697,10 @@ class AsyncSolveService:
                 continue
             try:
                 r.solution = self._solve_one(r, problem,
-                                             self._relay_for(r))
+                                             self._relay_for(r),
+                                             kind="quarantine")
+            except MeshFaultError:
+                raise
             except Exception as solo:
                 r._solo_error = solo
                 rep = getattr(solo, "report", None)
@@ -656,7 +714,7 @@ class AsyncSolveService:
         its deadline expired.  Runs on the worker thread."""
         loop = self._loop
 
-        def relay(event):
+        def decide(event):
             loop.call_soon_threadsafe(self._push_event, rec, event)
             if self._chaos_fire("serve_crash"):
                 self._crashed = True
@@ -674,7 +732,7 @@ class AsyncSolveService:
                 return {"stop": True}
             return None
 
-        return relay
+        return lambda event: self._control(decide(event))
 
     def _relay_for_batch(self, recs: List[RequestRecord]):
         """Batched relay + control: fan the per-instance sections out
@@ -683,7 +741,7 @@ class AsyncSolveService:
         exactly like converged lanes, siblings unperturbed."""
         loop = self._loop
 
-        def relay(event):
+        def decide(event):
             base = {k: v for k, v in event.items()
                     if k != "instances"}
             for j, st in event.get("instances", {}).items():
@@ -711,7 +769,7 @@ class AsyncSolveService:
                     cancel.append(j)
             return {"cancel_instances": cancel} if cancel else None
 
-        return relay
+        return lambda event: self._control(decide(event))
 
     # ------------------------------------------------------- loop side
     def _push_event(self, rec: RequestRecord, event: dict) -> None:
@@ -950,12 +1008,16 @@ class AsyncSolveService:
                 "finished_inflight": len(inflight)}
 
     async def close(self) -> None:
-        """Drain, then tear down the worker executor."""
+        """Drain, then tear down the worker executor; under a mesh the
+        followers' :func:`follow` returns."""
         if not self._closed:
             await self.drain()
             self._closed = True
             if self._watchdog_task is not None:
                 self._watchdog_task.cancel()
+            if self._ctl is not None and self._ctl.fault() is None:
+                self._executor.submit(_send_dispatch, self._ctl,
+                                      {"kind": "shutdown"}).result()
             self._executor.shutdown(wait=True)
             if self._journal is not None:
                 self._journal.close()
@@ -977,6 +1039,92 @@ class AsyncSolveService:
         self._executor.shutdown(wait=True)
         if self._journal is not None:
             self._journal.close()
+
+
+def _chaos_context(spec: Optional[str]):
+    return _chaos.active_chaos(_chaos.ChaosConfig.parse(spec)) \
+        if spec else contextlib.nullcontext()
+
+
+def _host_inputs(inputs: Tuple[Any, ...]) -> Tuple[Any, ...]:
+    """An instance's inputs as host arrays (a trailing draws dict
+    too)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x
+
+    return tuple(host(x) for x in inputs)
+
+
+def _send_dispatch(ctl, message: dict) -> float:
+    """Rank 0: wake the followers (through the store, which waits without
+    a time limit) and broadcast ``message`` on the control group;
+    returns the broadcast's seconds."""
+    ctl.next_dispatch()
+    t0 = time.perf_counter()
+    ctl.broadcast(message)
+    return time.perf_counter() - t0
+
+
+def follow(mesh, device=None) -> List[Tuple[str, Any]]:
+    """Every rank of a served mesh but rank 0: make each call rank 0's
+    service dispatches, on the same mesh, until it shuts down.  Returns
+    what each dispatch did on this rank, in order: its kind and its
+    Solution's log (a list of them for a bucket), or the exception the
+    call raised (without its traceback).  Only the logs are kept: the
+    Solutions are rank 0's to return, and a follower of a long-lived
+    service would otherwise hold a copy of every result.
+
+    A dispatch (module docstring) arrives over the mesh's control plane;
+    its ``progress_fn`` takes rank 0's lane control at each chunk
+    boundary, so this rank freezes the same lanes at the same boundary.
+    A call that fails here fails on rank 0 too (the collectives do), and
+    rank 0 goes on (quarantine); so does this rank.  A mesh fault ends
+    the loop with :class:`~repro_torch.resilience.errors.MeshFaultError`.
+    ``device=None`` means the mesh's card (``"cuda"``)."""
+    ctl = compat.control_of(mesh)
+    if ctl.rank == 0:
+        raise ValueError("serve.follow runs on the ranks other than 0; "
+                         "rank 0 runs the service (AsyncSolveService or "
+                         "serve_http with mesh=)")
+    dev = resolve_device(device)
+    done: List[Tuple[str, Any]] = []
+    while True:
+        ctl.await_dispatch()
+        msg = ctl.broadcast()
+        if msg["kind"] == "shutdown":
+            return done
+        problem = _as_problem(msg["problem"], msg["cfg"])
+
+        def control(event):
+            return ctl.broadcast(None)
+
+        try:
+            with _chaos_context(msg["chaos"]):
+                if msg["kind"] == "solve_many":
+                    out = [s.log for s in solve_many(
+                        problem, msg["inputs"], device=dev, mesh=mesh,
+                        progress_fn=control, **msg["kwargs"],
+                        **msg["options"])]
+                else:
+                    out = solve(problem, *msg["inputs"][0], device=dev,
+                                mesh=mesh, progress_fn=control,
+                                **msg["options"]).log
+        except MeshFaultError:
+            raise
+        except Exception as err:
+            if ctl.fault() is not None:
+                raise
+            # rank 0's call failed the same way: it carries on
+            out, seen = err, set()
+            while err is not None and id(err) not in seen:
+                seen.add(id(err))
+                err.__traceback__ = None    # its frames hold the run's tensors
+                err = err.__cause__ or err.__context__
+        done.append((msg["kind"], out))
 
 
 def _deadline_exceeded(rec: RequestRecord,

@@ -691,27 +691,47 @@ def test_make_mesh_needs_a_card_or_a_group():
     assert smallest_mesh(device="cpu") is None
 
 
-def test_supervision_under_a_mesh_raises(tmp_path):
-    """``resilience=`` with ``mesh=`` is not ported (ROADMAP A16): both
-    entry points raise before building anything, on a one-rank gloo mesh
-    of this process."""
+def test_supervision_under_a_one_rank_mesh_is_the_meshless_run(tmp_path):
+    """``resilience=`` with ``mesh=`` on a one-rank gloo mesh of this
+    process, under a retried dispatch and a poisoned carry: the
+    supervised solve and bucket equal their supervised runs without a
+    mesh bit for bit, with the same report."""
     from repro_torch.core.problem import solve, solve_many
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.psf import simulate
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.resilience import chaos
     from repro_torch.resilience.recovery import ResilienceConfig
-    x = np.zeros((4, 8, 8), np.float32)
+    d = simulate(8, torch.Generator().manual_seed(3), stamp=16,
+                 device="cpu")
+    insts = [(d.Y[:3], d.psfs[:3]), (d.Y[3:], d.psfs[3:])]
+    kw = dict(cfg=SolverConfig(mode="sparse", n_scales=2), device="cpu",
+              tol=0, chunk=CHUNK, max_iter=ITERS,
+              resilience=ResilienceConfig())
+
+    def both(mesh):
+        plan = chaos.ChaosConfig.parse("dispatch@1;carry_nan@1;seed=7")
+        with chaos.active_chaos(plan):
+            one = solve("deconvolve", d.Y, d.psfs, mesh=mesh, **kw)
+        with chaos.active_chaos(plan):
+            many = solve_many("deconvolve", insts, mesh=mesh, **kw)
+        return [one] + many
+
+    want = both(None)
     dist.init_process_group("gloo", rank=0, world_size=1,
                             store=dist.FileStore(str(tmp_path / "s"), 1),
                             timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_mesh((1,), ("data",), device="cpu")
-        with pytest.raises(NotImplementedError, match="A16"):
-            solve("deconvolve", x, x, device="cpu", mesh=mesh,
-                  resilience=ResilienceConfig())
-        with pytest.raises(NotImplementedError, match="A16"):
-            solve_many("deconvolve", [(x, x)], device="cpu", mesh=mesh,
-                       resilience=ResilienceConfig())
+        got = both(make_mesh((1,), ("data",), device="cpu"))
     finally:
         dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert g.log.costs == w.log.costs
+        np.testing.assert_array_equal(g.x, w.x)
+        assert g.recovery.to_json()["faults"] == \
+            w.recovery.to_json()["faults"]
+        assert (g.recovery.retries, g.recovery.rollbacks) == \
+            (w.recovery.retries, w.recovery.rollbacks) == (1, 1)
 
 
 if __name__ == "__main__":

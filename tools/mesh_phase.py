@@ -4,6 +4,7 @@ NCCL on several cards.
 
     python3 tools/mesh_phase.py             # one card: phase 21
     python3 tools/mesh_phase.py --cards 4   # four cards, one rank each
+    python3 tools/mesh_phase.py --cards 4 --supervised   # the last part
 
 Both run phases 1 and 2 of ``chip_smoke.py`` first (the card check and
 the kernels' build).  Without ``--cards``: phase 21, the four paths
@@ -19,8 +20,19 @@ single process: the sparse deconvolution's costs and iterate at rtol
 rtol 1e-4, SCDL's costs at rtol 5e-3 (the reference's own bound), the
 completion's gaps reported; the replicated state, costs and results
 bit for bit across the ranks; each rank's ms per iteration and host
-syncs per chunk.  The log goes to ``chiprun_out/mesh_phase.log`` and
-the report to ``chiprun_out/mesh_phase.json``.
+syncs per chunk.  Then the supervised paths of phase 22 over the same N
+NCCL ranks: phase 4's stamps under ``dispatch@1;carry_nan@1;seed=7``
+and the low-rank path under ``kernel:jacobi@2`` on every rank (the
+vote), each bit-identical to the ranks' unsupervised run with the same
+recovery report on every rank; supervision's cost without faults on the
+sparse path (in turns with the unsupervised run, each chunk's parts
+timed on the host, and one run of each under ``torch.profiler``); last,
+a fault on rank 2 alone past a collective, on which every rank must
+raise ``MeshFaultError`` within 30 s of rank 2 (the peers through the
+mesh's fault watch, which aborts their NCCL communicators).
+``--supervised`` runs only these supervised paths.  The log goes to
+``chiprun_out/mesh_phase.log`` and the report to
+``chiprun_out/mesh_phase.json``.
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cards", type=int, default=0,
                     help="run the paths over NCCL, one rank a card")
+    ap.add_argument("--supervised", action="store_true",
+                    help="with --cards: only the supervised paths")
     args = ap.parse_args()
     import torch
     out = ROOT / "chiprun_out"
@@ -57,9 +71,14 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=index,name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip())
-        cs.log(f"== {args.cards} NCCL ranks, one a card")
-        plain = cs.mesh_plain(torch, cs.MESH_PATHS)
-        report = cs.mesh_world_phase(torch, plain, "nccl", args.cards)
+        report = {}
+        if not args.supervised:
+            cs.log(f"== {args.cards} NCCL ranks, one a card")
+            plain = cs.mesh_plain(torch, cs.MESH_PATHS)
+            report = cs.mesh_world_phase(torch, plain, "nccl", args.cards)
+        cs.log(f"== {args.cards} NCCL ranks, supervised")
+        report["supervised"], _ = cs.sup_world_phase(
+            torch, cs.sup_world_start(torch, "nccl", args.cards))
     else:
         report, plain = cs.mesh_nccl_phase(torch)
         report["gloo"] = cs.mesh_gloo_phase(torch, plain)

@@ -148,6 +148,16 @@ prints its final line):
     ranks start up (and import ``torch._dynamo``) while phase 21 and
     22(a) run; the supervised sparse run is held against phase 21(b)'s
     unsupervised one.
+23. the JAX package's public names that the port took on: the
+    deprecated ``deconvolve`` shim on phase 5's 256 stamps and ``train``
+    on phase 9's K = 2048, A = 128 patches, each bit-identical to
+    ``solve`` on the same inputs, with one ``DeprecationWarning``, the
+    solve's host syncs (one a chunk) and its launches (Phi, Phi^T and
+    the Condat passes; ``admm_elwise`` and ``dict_outer_pair``);
+    ``IterativeDriver``'s legacy keyword arguments on the card,
+    bit-identical to ``options=``; and ``python -m repro_torch.lint``
+    over the tree in a subprocess on the host, beside the rest, which
+    must exit 0 (its file count and seconds printed).
 
 Phases 3 and 6 also hold the Condat passes with a step size per
 instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
@@ -3536,6 +3546,197 @@ def supervised_mesh_phase(torch, world, phase19, phase17):
     return out
 
 
+# ---------------------------------------------------------------- 23
+LINT_TIMEOUT_S = 300
+# the deprecated shims' warnings, which name the entry point to use
+SHIM_WARNING = "is deprecated; use repro_torch.core.problem.solve("
+
+
+def record_run(torch, run):
+    """``run(progress_fn)`` under torch's sync debug mode: its result, the
+    host syncs it made in all, the median between consecutive progress
+    events (one event per chunk; None where ``run`` passes none on) and
+    the shims' deprecation warnings it raised."""
+    syncs_at = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return sum("synchroniz" in str(w.message) for w in caught)
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run(lambda event: syncs_at.append(syncs()))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        total = syncs()
+        shims = [str(w.message) for w in caught
+                 if issubclass(w.category, DeprecationWarning)
+                 and SHIM_WARNING in str(w.message)]
+    steady = [b - a for a, b in zip(syncs_at, syncs_at[1:])]
+    return out, total, statistics.median(steady) if steady else None, shims
+
+
+def shim_run(torch, label, solve_run, shim, kernels):
+    """A deprecated shim against ``solve`` on the same inputs: one
+    warning, the solve's host syncs (one a chunk), its launches of
+    ``kernels`` and its result bit for bit.  Returns the numbers."""
+    want, _, per_chunk, solve_warned = record_run(torch, solve_run)
+    # the same solve without a progress hook, as the shim passes none, and
+    # after the first (whose setup fills the starlet norm's cache)
+    reset_launches()
+    _, plain_total, _, _ = record_run(torch, lambda _: solve_run(None))
+    want_launches = read_launches()
+    reset_launches()
+    got, total, _, shims = record_run(torch, lambda _: shim())
+    launches = read_launches()
+    if solve_warned or len(shims) != 1:
+        raise AssertionError(f"{label}: deprecation warnings {shims} (solve "
+                             f"{solve_warned}), expected one from the shim")
+    if per_chunk != 1 or total != plain_total:
+        raise AssertionError(f"{label}: solve syncs {per_chunk} a chunk; shim "
+                             f"{total} syncs in all against solve's "
+                             f"{plain_total}")
+    if launches != want_launches or not all(launches[k] for k in kernels):
+        raise AssertionError(f"{label}: launches {launches}, solve's "
+                             f"{want_launches}; expected each of {kernels}")
+    return want, got, {"syncs_per_chunk": per_chunk, "syncs": total,
+                       "launches": {k: launches[k] for k in kernels},
+                       "warning": shims[0]}
+
+
+def names_and_lint_phase(torch):
+    """Phase 23: the JAX package's public names the port took on (ROADMAP
+    C1) on the card, and the port's linter on the chip host."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.core.bundle import Bundle
+    from repro_torch.core.driver import IterativeDriver, RunOptions
+    from repro_torch.core.problem import solve
+    from repro_torch.data.synthetic import coupled_patches
+    from repro_torch.imaging.condat import SolverConfig
+    from repro_torch.imaging.deconvolve import deconvolve
+    from repro_torch.imaging.psf import simulate
+    from repro_torch.imaging.scdl import SCDLConfig, train
+
+    t0 = time.perf_counter()
+    # the linter runs on the host's cores while the card works
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lint = subprocess.Popen([sys.executable, "-m", "repro_torch.lint"],
+                            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out = {}
+        # (a) the deconvolve shim on phase 5's 256 stamps
+        data = simulate(PARITY_N, torch.Generator().manual_seed(5),
+                        stamp=STAMP, device="cpu")
+        cfg = SolverConfig(mode="sparse", n_scales=SCALES)
+        kw = dict(max_iter=PARITY_ITERS, chunk=PARITY_CHUNK,
+                  cost_every="chunk", tol=1e-5)
+        want, got, out["deconvolve"] = shim_run(
+            torch, "deconvolve shim",
+            lambda progress: solve("deconvolve", data.Y, data.psfs, cfg=cfg,
+                                   progress_fn=progress, **kw),
+            lambda: deconvolve(data.Y, data.psfs, cfg, **kw),
+            ("starlet2d.forward", "starlet2d.adjoint",
+             "condat_elwise.primal", "condat_elwise.dual"))
+        same = np.array_equal(want.x, got[0]) and \
+            want.log.costs == got[1].costs
+        log(f"deconvolve shim at n={PARITY_N}: {out['deconvolve']}; "
+            f"bit-identical to solve: {same}")
+        if not same:
+            raise AssertionError("deconvolve shim differs from solve")
+        # (b) the train shim on phase 9's K=2048, A=128 patches
+        S_h, S_l = coupled_patches(SCDL_PARITY_K, SCDL_P, SCDL_M,
+                                   SCDL_PARITY_A,
+                                   torch.Generator().manual_seed(5),
+                                   device="cpu")
+        scfg = SCDLConfig(n_atoms=SCDL_PARITY_A)
+        skw = dict(max_iter=SCDL_PARITY_ITERS, chunk=SCDL_PARITY_CHUNK,
+                   cost_every="chunk")
+        want, got, out["train"] = shim_run(
+            torch, "train shim",
+            lambda progress: solve("scdl", S_h, S_l, cfg=scfg,
+                                   progress_fn=progress, **skw),
+            lambda: train(S_h, S_l, scfg, **skw),
+            ("admm_elwise", "dict_outer_pair"))
+        same = np.array_equal(want.x[0], got[0]) and \
+            np.array_equal(want.x[1], got[1]) and \
+            want.log.costs == got[2].costs
+        log(f"train shim at K={SCDL_PARITY_K} A={SCDL_PARITY_A}: "
+            f"{out['train']}; bit-identical to solve: {same}")
+        if not same:
+            raise AssertionError("train shim differs from solve")
+        # (c) IterativeDriver's legacy kwargs on the card (the ridge toy)
+        g = torch.Generator().manual_seed(3)
+        X = torch.randn((64, 4), generator=g)
+        y = X @ torch.arange(1.0, 5.0)
+
+        def ridge():
+            return Bundle.create({"X": X, "y": y},
+                                 replicated={"w": torch.zeros(4)},
+                                 device="cuda")
+
+        def step(d, rep, axes):
+            r = d["X"] @ rep["w"] - d["y"]
+            grad = d["X"].T @ r / d["X"].shape[0]
+            return d, {"cost": 0.5 * torch.sum(r ** 2),
+                       "w": rep["w"] - 0.1 * grad}
+
+        def keep_w(rep, o):
+            return {"w": o["w"]}
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            legacy = IterativeDriver(step, ridge(), max_iter=8, tol=0,
+                                     chunk=4, update_replicated=keep_w)
+        legacy_w = legacy.run().replicated["w"].cpu()
+        opt = IterativeDriver(step, ridge(), options=RunOptions(
+            max_iter=8, tol=0, chunk=4, update_replicated=keep_w))
+        opt_w = opt.run().replicated["w"].cpu()
+        warned = sum(issubclass(w.category, DeprecationWarning)
+                     for w in caught)
+        same = legacy.log.costs == opt.log.costs and \
+            torch.equal(legacy_w, opt_w)
+        out["driver_legacy"] = {"warnings": warned, "same": same,
+                                "costs": [legacy.log.costs[0],
+                                          legacy.log.costs[-1]]}
+        log(f"IterativeDriver legacy kwargs on the card: {warned} "
+            f"DeprecationWarning, costs {legacy.log.costs[0]:.6g} -> "
+            f"{legacy.log.costs[-1]:.6g}, bit-identical to options=: "
+            f"{same}")
+        if warned != 1 or not same or \
+                not legacy.log.costs[-1] < legacy.log.costs[0]:
+            raise AssertionError("legacy IterativeDriver kwargs on the card")
+        card_s = time.perf_counter() - t0
+        # (d) the port's linter over the tree, in its own process
+        text, _ = lint.communicate(timeout=LINT_TIMEOUT_S)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    lint_s = time.perf_counter() - t0
+    m = re.search(r"(\d+) files checked, (\d+) finding", text)
+    out["lint"] = {"rc": lint.returncode, "seconds": lint_s,
+                   "files": int(m.group(1)) if m else None,
+                   "findings": int(m.group(2)) if m else None,
+                   "python": sys.version.split()[0]}
+    log(f"lint: python -m repro_torch.lint (Python "
+        f"{out['lint']['python']}) over {out['lint']['files']} files: "
+        f"exit {lint.returncode}, {out['lint']['findings']} findings, "
+        f"{lint_s:.2f} s from the phase's start (it ran beside (a)-(c), "
+        f"{card_s:.2f} s)")
+    if lint.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.lint exited "
+                             f"{lint.returncode}:\n{text[-4000:]}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23: {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -3671,6 +3872,8 @@ def main() -> int:
     report["supervised_mesh"] = supervised_mesh_phase(
         torch, sup_world, report["supervision"], PHASE17)
     PHASE17.clear()
+    log("== the JAX package's public names on the card; the port's linter")
+    report["names_and_lint"] = names_and_lint_phase(torch)
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
@@ -3736,6 +3939,11 @@ def main() -> int:
         f"{sv['ms_per_iter']} meshless (phase 19); gloo (4,) supervised "
         f"and served {sm['gloo']['world_s']:.1f} s; "
         f"{sm['seconds']:.1f} s of phase 22")
+    nl = report["names_and_lint"]
+    log(f"shims: deconvolve and train bit-identical to solve, one "
+        f"DeprecationWarning and one host sync a chunk each; linter over "
+        f"{nl['lint']['files']} files clean; {nl['seconds']:.1f} s of "
+        f"phase 23")
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")

@@ -334,6 +334,12 @@ class Checkpointer:
         self.spill_seconds: List[float] = []
         self.write_seconds: List[float] = []
 
+    def _record_failure(self, exc: BaseException) -> None:
+        """The writer thread's exception router: keep the failure for
+        :meth:`_raise_pending` at the next synchronisation point (the
+        ``CheckpointWriteError`` raised there chains it)."""
+        self._error = exc
+
     def _raise_pending(self):
         if self._error is not None:
             exc, self._error = self._error, None
@@ -371,8 +377,8 @@ class Checkpointer:
                 self.saved_steps.append(step)
                 self._gc()
                 self.write_seconds.append(time.perf_counter() - t1)
-            except BaseException as e:  # raised at the next sync point
-                self._error = e
+            except BaseException as e:  # surfaces via _raise_pending
+                self._record_failure(e)
 
         self._thread = threading.Thread(target=_write, daemon=True)
         self._thread.start()

@@ -410,6 +410,13 @@ def tear_down(reason: str) -> None:
     gc.collect()
 
 
+def make_mesh(shape, axes, device=None):
+    """``repro.core.compat.make_mesh``'s counterpart: the mesh of
+    ``launch.mesh.make_mesh`` (which imports this module)."""
+    from repro_torch.launch.mesh import make_mesh as _make_mesh
+    return _make_mesh(shape, axes, device)
+
+
 def mesh_device(mesh) -> torch.device:
     """The device a rank of ``mesh`` computes on."""
     if mesh.device_type == "cuda":

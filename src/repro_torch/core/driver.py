@@ -42,7 +42,8 @@ each costs one ``is None`` check.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field, replace
+import warnings
+from dataclasses import dataclass, field, fields, replace
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -126,6 +127,9 @@ class RunOptions:
                                 if v is not None})
 
 
+_RUN_OPTION_NAMES = tuple(f.name for f in fields(RunOptions))
+
+
 def percentiles(values, qs=(50, 90, 99)) -> Dict[str, float]:
     """``{"p50": ..., "p90": ..., "p99": ...}`` summary of a sample;
     empty input gives an empty dict."""
@@ -165,10 +169,29 @@ def _host_costs(trace) -> np.ndarray:
 class IterativeDriver:
     """Drive ``step_fn(data, rep, axes) -> (data', out)`` until the
     relative cost change drops below ``tol`` or ``max_iter`` is hit.
-    ``out`` is a scalar cost or a dict with a ``"cost"`` entry."""
+    ``out`` is a scalar cost or a dict with a ``"cost"`` entry.
+
+    The configuration is one :class:`RunOptions`.  The individual
+    keyword arguments of old (``max_iter=``, ``step_fn_light=``, ...)
+    are still taken, deprecated: they are mapped onto ``options`` with a
+    ``DeprecationWarning``, and a name that is no field raises
+    ``TypeError``."""
 
     def __init__(self, step_fn: Callable, bundle: Bundle, *,
-                 options: Optional[RunOptions] = None):
+                 options: Optional[RunOptions] = None, **legacy):
+        if legacy:
+            unknown = set(legacy) - set(_RUN_OPTION_NAMES)
+            if unknown:
+                raise TypeError(
+                    f"IterativeDriver got unexpected kwargs "
+                    f"{sorted(unknown)}; valid RunOptions fields: "
+                    f"{list(_RUN_OPTION_NAMES)}")
+            warnings.warn(
+                "passing IterativeDriver configuration as individual "
+                f"kwargs ({sorted(legacy)}) is deprecated; pass "
+                "options=RunOptions(...) instead", DeprecationWarning,
+                stacklevel=2)
+            options = replace(options or RunOptions(), **legacy)
         self.options = options = options or RunOptions()
         self.bundle = bundle
         self.step_fn = step_fn

@@ -30,7 +30,7 @@ mode needs only ``u0``/``v0``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,6 +55,15 @@ class SolverConfig:
     tol: float = 1e-4
 
 
+class SolverState(NamedTuple):
+    """The sequential solver's state, with the JAX module's fields."""
+    X: torch.Tensor                 # primal    (n, S, S)
+    U: torch.Tensor                 # dual      (sparse: (J, n, S, S); lowrank: (n, S, S))
+    HX: torch.Tensor                # carried H(X)        (n, S, S)
+    CX: torch.Tensor                # carried Phi(X)      (J, n, S, S); () in lowrank
+    cost: torch.Tensor              # scalar
+
+
 MODES = ("sparse", "lowrank")
 
 
@@ -68,6 +77,12 @@ def check_mode(cfg: SolverConfig) -> None:
 # Per-record pieces (used unchanged by imaging/deconvolve.py)
 # ---------------------------------------------------------------------
 
+def grad_data(X, Y, psfs):
+    """grad of 0.5||Y - H(X)||^2 = H^T(H(X) - Y), one-shot (loops carry
+    H(X) and use :func:`grad_from_HX`)."""
+    return psf_op.Ht(psf_op.H(X, psfs) - Y, psfs)
+
+
 def grad_from_HX(HX, Y, kf_pair):
     """grad of 0.5||Y - H(X)||^2 = H^T(H(X) - Y), off the carried H(X)
     and the precomputed conjugate spectrum."""
@@ -78,6 +93,12 @@ def data_cost_from(HX, Y):
     """0.5||Y - H(X)||_F^2 off the carried forward model, per instance
     when the stamps carry an instance axis."""
     return 0.5 * torch.sum((Y - HX) ** 2, dim=(-3, -2, -1))
+
+
+def data_cost(X, Y, psfs):
+    """0.5||Y - H(X)||_F^2, one-shot (per instance, as
+    :func:`data_cost_from`)."""
+    return data_cost_from(psf_op.H(X, psfs), Y)
 
 
 def per_instance(v, like):

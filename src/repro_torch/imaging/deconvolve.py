@@ -12,7 +12,8 @@ sparse or low-rank mode.  Port of ``repro.imaging.deconvolve``.
 
 The per-record math comes from ``imaging/condat.py`` unchanged.  The
 workload is declared once as :class:`DeconvolutionProblem`, registered
-under ``"deconvolve"``; run it with ``repro_torch.core.problem.solve``.
+under ``"deconvolve"``; run it with ``repro_torch.core.problem.solve``
+(:func:`deconvolve` is the JAX package's deprecated shim over it).
 
 Bundle layout: the JAX bundle keeps every leaf record-major and swaps
 the per-scale leaves (``W``, ``Xd``, ``CX``) to scale-major inside every
@@ -44,6 +45,7 @@ constructor's.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,7 +54,7 @@ import torch
 from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle, gather_leaf
 from repro_torch.core.compat import psum
-from repro_torch.core.problem import Problem, register
+from repro_torch.core.problem import Problem, register, solve
 from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
 from repro_torch.imaging.condat import (SolverConfig, check_mode,
@@ -273,3 +275,26 @@ class DeconvolutionProblem(Problem):
         return BatchAxes(record_axes=(0, 0, None), shared_in_batch=shared,
                          instance_invariant=("sigma_noise", "u0", "v0",
                                              "x0", "noise", "omega"))
+
+
+def deconvolve(Y, psfs, cfg: SolverConfig, mesh=None,
+               sigma_noise: float = 0.02, max_iter: Optional[int] = None,
+               tol: Optional[float] = None, chunk: int = 8, cost_every=1,
+               *, device=None, **draws):
+    """End-to-end Algorithm 1.  Returns (X*, the driver's log).
+
+    .. deprecated::
+        Thin shim over ``solve(DeconvolutionProblem(cfg, sigma_noise,
+        **draws), Y, psfs, ...)``, bit for bit; use the ``solve()`` entry
+        point.  ``draws`` are the constructor's random draws (``u0``,
+        ``v0``, ``x0``, ``noise``, ``omega``), ``device`` the port's
+        placement (``None`` = ``"cuda"``).
+    """
+    warnings.warn(
+        "deconvolve(...) is deprecated; use repro_torch.core.problem.solve("
+        '"deconvolve", Y, psfs, cfg=cfg, ...)', DeprecationWarning,
+        stacklevel=2)
+    sol = solve(DeconvolutionProblem(cfg, sigma_noise=sigma_noise, **draws),
+                Y, psfs, device=device, mesh=mesh, max_iter=max_iter,
+                tol=tol, chunk=chunk, cost_every=cost_every)
+    return sol.x, sol.log

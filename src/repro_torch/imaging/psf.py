@@ -118,6 +118,16 @@ def grid_of(kf: torch.Tensor) -> int:
     return kf.shape[-2]
 
 
+def H_f(X: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """Forward convolution off a precomputed kernel spectrum."""
+    return convolve_f(X, kf)
+
+
+def Ht_f(Y: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """Adjoint convolution off a precomputed kernel spectrum."""
+    return convolve_f(Y, kf, adjoint=True)
+
+
 def H_fp(X: torch.Tensor, kf_pair: torch.Tensor) -> torch.Tensor:
     """Forward convolution off the carried pair."""
     return convolve_f(X, kf_pair[..., 0, :, :])

@@ -38,7 +38,8 @@ Differences from the JAX module, each deliberate:
   (5, K, A), records on axis 1 (``Bundle.record_axes``), so each plane
   is one contiguous block; ``repro_torch.convert`` swaps at the
   boundary.
-- The deprecated ``train`` shim is not ported; use ``solve("scdl", ...)``.
+- The deprecated :func:`train` shim takes the atom choice as ``idx=``
+  where the JAX package's takes a ``key=``.
 
 Under a mesh (``build_bundle(mesh=)``, ``solve(..., mesh=)``) the atoms
 are chosen and the normalizers ``n_h``/``n_l`` taken over all K samples,
@@ -58,6 +59,7 @@ of its inputs, ``(S_h, S_l, {"idx": ...})``.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -67,7 +69,7 @@ import torch
 from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle
 from repro_torch.core.compat import psum_tree
-from repro_torch.core.problem import Problem, register
+from repro_torch.core.problem import Problem, register, solve
 from repro_torch.kernels.admm_elwise.ops import admm_elwise
 from repro_torch.kernels.common import resolve_device, to_device
 from repro_torch.kernels.dict_outer.ops import dict_outer_pair
@@ -395,3 +397,28 @@ class SCDLProblem(Problem):
         # by declaration
         return BatchAxes(record_axes=(1, 1, None), pad_records=False,
                          instance_invariant=("idx",))
+
+
+def train(S_h, S_l, cfg: SCDLConfig, mesh=None, idx=None,
+          max_iter: Optional[int] = None, chunk: int = 8, cost_every=1, *,
+          device=None):
+    """End-to-end Algorithm 2.  Returns (X_h*, X_l*, the driver's log).
+
+    ``idx`` (A column indices of the K samples) takes the place of the
+    JAX package's ``key=``: random draws are arguments in the port, and
+    without it the columns come from a CPU ``torch.Generator`` seeded 3
+    (:func:`init_dicts`).  ``cost_every`` is an int or ``"chunk"``, as
+    for ``solve``.
+
+    .. deprecated::
+        Thin shim over ``solve(SCDLProblem(cfg, idx=idx), S_h, S_l,
+        ...)``, bit for bit; use the ``solve()`` entry point.
+    """
+    warnings.warn(
+        "scdl.train(...) is deprecated; use repro_torch.core.problem.solve("
+        '"scdl", S_h, S_l, cfg=cfg, ...)', DeprecationWarning, stacklevel=2)
+    sol = solve(SCDLProblem(cfg, idx=idx), S_h, S_l, device=device,
+                mesh=mesh, max_iter=max_iter, chunk=chunk,
+                cost_every=cost_every)
+    Xh, Xl = sol.x
+    return Xh, Xl, sol.log

@@ -14,7 +14,8 @@ import torch
 from repro_torch.kernels import common
 
 
-def admm_elwise_fwd(Wh, Wl, YZ, *, c1, c2, c3, t1, t2):
+def admm_elwise_fwd(Wh, Wl, YZ, *, c1: float, c2: float, c3: float,
+                    t1: float, t2: float):
     """Wh/Wl: (K, A) CUDA tensors; YZ: (5, K, A), plane-major; all one
     dtype (fp32 or bf16) and contiguous.  Returns the new (5, K, A)."""
     what = "admm_elwise"

@@ -247,5 +247,6 @@ def device_scalar(value, like: torch.Tensor, what: str,
                 f"{like.device}, got {tuple(value.shape)} {value.dtype} "
                 f"on {value.device}")
         return value
-    return torch.tensor(float(value), dtype=torch.float32,
-                        device=like.device)
+    # a Python number here: a tensor returned above
+    return torch.tensor(float(value),  # repro-lint: disable=RPL302
+                        dtype=torch.float32, device=like.device)

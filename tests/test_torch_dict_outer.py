@@ -142,8 +142,9 @@ def test_tf32_split_gives_back_fp32(seed, exponent):
     x = torch.tensor(a, dtype=torch.float32)
     hi, lo = _split(x)
     assert not bool(_low_bits(hi).any()) and not bool(_low_bits(lo).any())
-    err = (hi.double() + lo.double() - x.double()).abs()
-    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+    # fp64 on the CPU: the exact sum the split must reproduce
+    err = (hi.double() + lo.double() - x.double()).abs()  # repro-lint: disable=RPL401
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())  # repro-lint: disable=RPL401
 
 
 @pytest.mark.parametrize("x, want", [
@@ -177,12 +178,13 @@ def test_three_tf32_products_match_fp32(K, dtype):
         assert all(not bool(lo.any()) for _, lo in (Sh, Sl, Wh, Wl))
 
     def tf32x3(L, R):
-        (Lh, Ll), (Rh, Rl) = ((a.double(), b.double()) for a, b in (L, R))
+        # fp64 on the CPU, so the three products add without rounding
+        (Lh, Ll), (Rh, Rl) = ((a.double(), b.double()) for a, b in (L, R))  # repro-lint: disable=RPL401
         return Lh.T @ Rh + Lh.T @ Rl + Ll.T @ Rh
 
     got = [tf32x3(L, R) for L, R in ((Sh, Wh), (Sl, Wl), (Wh, Wh), (Wl, Wl))]
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), w.double().numpy(),
+        np.testing.assert_allclose(g.numpy(), w.double().numpy(),  # repro-lint: disable=RPL401
                                    **_do_tol("float32", K))
 
 

@@ -158,6 +158,22 @@ prints its final line):
     bit-identical to ``options=``; and ``python -m repro_torch.lint``
     over the tree in a subprocess on the host, beside the rest, which
     must exit 0 (its file count and seconds printed).
+24. the LM-seed substrates: (a) ``adamw_update`` on a bf16 parameter
+    tree at Llama-3.2-1B's published widths (``ModelConfig``'s
+    ``param_count()`` entries, about 1.236 B), 1 + 10 updates with
+    ``lr_scale`` from ``warmup_cosine`` of the device step: ms per
+    update (CUDA events) beside its bound (30 bytes a parameter over the
+    memory rate), host syncs per update (must be 0), device operations
+    per update, peak memory; then 20 updates of a 2-layer, d = 256 tree
+    on the card against the port's CPU path (each leaf within 1e-5 of
+    its largest entry, bf16 params within one ulp); (b) under a
+    one-rank NCCL (data=1, model=1) mesh: ``param_pspecs``,
+    ``opt_pspecs`` with ZeRO-1 and ``cache_pspecs`` on that tree, a
+    placement of every leaf that keeps every row, and ``lm_loader``
+    under the mesh bit for bit ``lm_batch``; (c) ``lm_loader`` on the
+    card, batch 8 of 8192 tokens, 20 batches each bit for bit
+    ``lm_batch`` made on the card, a resume at step 10, the worker
+    stopped by ``close()``, ms per batch taken.
 
 Phases 3 and 6 also hold the Condat passes with a step size per
 instance (count 1 and 8, the bucket's layout and a ragged one, fp32 and
@@ -1200,8 +1216,10 @@ def count_syncs(torch, fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    # the mode's own notice, given once a process, names no sync
     return [f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}"
-            for w in caught if "synchroniz" in str(w.message)]
+            for w in caught if "synchroniz" in str(w.message)
+            and "prototype feature" not in str(w.message)]
 
 
 def jacobi_phase(torch):
@@ -3737,6 +3755,365 @@ def names_and_lint_phase(torch):
     return out
 
 
+# ----------------------------------------------------------------- 24
+# Llama-3.2-1B's published widths (its config.json): 16 layers, d 2048,
+# 32 heads of 64, 8 KV heads, SwiGLU 8192, vocabulary 128 256, tied
+# embeddings; about 1.236 B parameters
+LLAMA_1B = dict(name="llama-3.2-1b", family="dense", n_layers=16,
+                d_model=2048, n_heads=32, n_kv_heads=8, d_ff=8192,
+                vocab_size=128_256, head_dim=64, rope_theta=500_000.0,
+                tie_embeddings=True, norm_eps=1e-5,
+                source="meta-llama/Llama-3.2-1B config.json")
+# the same shape cut to 2 layers of 256 for card against CPU
+SMALL_LM = dict(LLAMA_1B, name="small", n_layers=2, d_model=256,
+                n_heads=4, n_kv_heads=2, d_ff=1024, vocab_size=1024)
+ADAMW_UPDATES, SMALL_UPDATES = 10, 20
+WARMUP, TOTAL = 5, 1000
+# the update reads g (bf16), m, v and master (fp32) and writes m, v,
+# master and the bf16 params: 28 bytes a parameter; the global norm
+# reads g once more
+ADAMW_BYTES, NORM_BYTES = 28, 2
+# card against CPU on the small tree: each leaf's m, v and master within
+# this share of the CPU leaf's largest entry, the bound the CPU tests
+# hold the port to against JAX (tests/test_torch_substrates.py); the
+# bf16 params within one bf16 ulp; the grad norm (a sum over 2.2 M
+# squares in another order) at rtol 1e-5
+SMALL_RTOL, BF16_ULP, GNORM_RTOL = 1e-5, 2 ** -7, 1e-5
+LOADER_BATCH, LOADER_SEQ, LOADER_DEPTH, LOADER_STEPS = 8, 8192, 2, 20
+LOADER_SEED, LOADER_RESUME = 24, 10
+LM_DIR = ROOT / "build" / "phase24"
+
+
+def lm_tree(cfg, make):
+    """A dense model's parameter tree under ``param_pspecs``' leaf names,
+    ``make(shape)`` for each leaf: exactly ``cfg.param_count()``
+    entries."""
+    L, d, V, ff = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
+    H = cfg.n_heads * cfg.resolved_head_dim
+    K = cfg.n_kv_heads * cfg.resolved_head_dim
+    tree = {"embed": make((V, d)), "final_norm": make((d,)),
+            "layers": {"ln1": make((L, d)), "ln2": make((L, d)),
+                       "wq": make((L, d, H)), "wk": make((L, d, K)),
+                       "wv": make((L, d, K)), "wo": make((L, H, d)),
+                       "w1": make((L, d, ff)), "w3": make((L, d, ff)),
+                       "w2": make((L, ff, d))}}
+    if not cfg.tie_embeddings:
+        tree["head"] = make((d, V))
+    return tree
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def adamw_card_phase(torch, cfg):
+    """24(a): ``adamw_update`` on a bf16 tree at ``cfg``'s widths: 1 + 10
+    updates, ``lr_scale`` from ``warmup_cosine`` of the device step; ms
+    per update (CUDA events), host syncs (must be 0), peak memory and
+    the bound; then one more under the profiler (device operations).
+    Returns the tree and the result."""
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, global_norm)
+    from repro_torch.optim.schedule import warmup_cosine
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    params = lm_tree(cfg, lambda s: randn(s).mul_(0.02))
+    grads = lm_tree(cfg, randn)
+    n = sum(x.numel() for x in tree_leaves(params))
+    if n != cfg.param_count():
+        raise AssertionError(f"tree of {n} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    acfg = AdamWConfig()
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+
+    def update():
+        scale = warmup_cosine(state["opt"]["step"], warmup=WARMUP,
+                              total=TOTAL)
+        state["params"], state["opt"], state["metrics"] = adamw_update(
+            grads, state["opt"], state["params"], acfg, scale)
+
+    update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    marks = []
+
+    def timed():
+        for _ in range(ADAMW_UPDATES):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            update()
+            e1.record()
+            marks.append((e0, e1))
+
+    syncs = count_syncs(torch, timed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = [a.elapsed_time(b) for a, b in marks]
+    prof = profile_window(torch, update, 1, ())
+    step = int(state["opt"]["step"])
+    gnorm = float(state["metrics"]["grad_norm"])
+    finite = bool(torch.isfinite(global_norm(state["opt"]["master"])))
+    bound_ms = (ADAMW_BYTES + NORM_BYTES) * n / HBM_BYTES_PER_S * 1e3
+    out = {"params": n, "param_count": cfg.param_count(),
+           "ms_per_update": statistics.median(times), "ms": times,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "syncs_per_update": len(syncs) / ADAMW_UPDATES,
+           "sync_sites": syncs,
+           "device_ops_per_update": prof["device_ops_per_iter"],
+           "device_ms_per_update": prof["device_ms_per_iter"],
+           "idle_share": prof["idle_share"],
+           "peak_gb": peak / 1e9, "state_gb": start_bytes / 1e9,
+           "step": step, "grad_norm": gnorm,
+           "lr": float(state["metrics"]["lr"])}
+    log(f"adamw_update at {cfg.name}'s widths ({n} parameters, bf16 params "
+        f"and grads, fp32 master and moments): {out['ms_per_update']:.4f} "
+        f"ms/update (median of {ADAMW_UPDATES}, CUDA events; "
+        f"{[round(t, 4) for t in times]}) against the bound "
+        f"{bound_ms:.4f} ms ({ADAMW_BYTES} + {NORM_BYTES} bytes a parameter "
+        f"over {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+        f"{out['ms_per_update'] / bound_ms:.2f}x; host syncs per update "
+        f"{out['syncs_per_update']} {syncs}; device operations per update "
+        f"{prof['device_ops_per_iter']:.0f}, device {prof['device_ms_per_iter']:.4f} "
+        f"ms, idle {prof['idle_share']:.3f}; peak {out['peak_gb']:.2f} GB "
+        f"(state before an update {out['state_gb']:.2f} GB); step {step}, "
+        f"grad norm {gnorm:.6g}, lr {out['lr']:.6g}; master finite {finite}")
+    if syncs:
+        raise AssertionError(f"adamw_update synced the host: {syncs}")
+    # the warm-up, the timed updates and the profiled one
+    if step != 2 + ADAMW_UPDATES or not finite or not math.isfinite(gnorm):
+        raise AssertionError(f"adamw_update: step {step}, grad norm {gnorm}, "
+                             f"master finite {finite}")
+    return state["params"], out
+
+
+def adamw_parity_phase(torch, cfg):
+    """24(a), continued: the card's updates on a small tree against the
+    port's CPU path on the same inputs."""
+    from repro_torch.core.persistence import tree_map
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update)
+    from repro_torch.optim.schedule import warmup_cosine
+
+    g = torch.Generator().manual_seed(7)
+    params = lm_tree(cfg, lambda s: (0.02 * torch.randn(s, generator=g))
+                     .to(torch.bfloat16))
+    grads = [lm_tree(cfg, lambda s: torch.randn(s, generator=g).to(
+        torch.bfloat16)) for _ in range(SMALL_UPDATES)]
+    acfg = AdamWConfig()
+
+    def run(device):
+        def to(tree):
+            return tree_map(lambda x: x.to(device), tree)
+
+        p = to(params)
+        opt = adamw_init(p)
+        for gr in grads:
+            scale = warmup_cosine(opt["step"], warmup=WARMUP, total=TOTAL)
+            p, opt, metrics = adamw_update(to(gr), opt, p, acfg, scale)
+        return p, opt, metrics
+
+    cp, copt, cmet = run("cpu")
+    gp, gopt, gmet = run("cuda")
+    gaps = {}
+    for key in ("m", "v", "master"):
+        gaps[key] = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                        for a, b in zip(tree_leaves(gopt[key]),
+                                        tree_leaves(copt[key])))
+    params_gap = max(float(((a.cpu().float() - b.float()).abs() /
+                            b.float().abs().clamp_min(1e-30)).max())
+                     for a, b in zip(tree_leaves(gp), tree_leaves(cp)))
+    gn_gap = abs(float(gmet["grad_norm"]) - float(cmet["grad_norm"])) / \
+        float(cmet["grad_norm"])
+    same_step = int(gopt["step"]) == int(copt["step"]) == SMALL_UPDATES
+    out = {"leaf_gap": gaps, "params_rel_gap": params_gap,
+           "grad_norm_rel_gap": gn_gap, "step_equal": same_step}
+    log(f"adamw card against CPU, {SMALL_UPDATES} updates at {cfg.name} "
+        f"({cfg.n_layers} layers, d {cfg.d_model}; "
+        f"{sum(x.numel() for x in tree_leaves(params))} parameters): "
+        f"largest gap over a leaf's largest entry {gaps} (held to "
+        f"{SMALL_RTOL}); bf16 params {params_gap:.3g} (one ulp "
+        f"{BF16_ULP:.3g}); last grad norm {gn_gap:.3g} (rtol {GNORM_RTOL}); "
+        f"steps equal {same_step}")
+    if max(gaps.values()) > SMALL_RTOL or params_gap > BF16_ULP or \
+            gn_gap > GNORM_RTOL or not same_step:
+        raise AssertionError("adamw_update: card against CPU")
+    return out
+
+
+def lm_specs_phase(torch, cfg, params):
+    """24(b): specs, placements and the loader under a one-rank NCCL mesh
+    (data=1, model=1) in this process."""
+    import inspect
+    import shutil
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core.compat import P, mesh_shape
+    from repro_torch.data.pipeline import lm_loader
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import opt_pspecs
+    from repro_torch.parallel.sharding import (cache_pspecs, for_mesh,
+                                               param_pspecs)
+    shutil.rmtree(LM_DIR, ignore_errors=True)
+    LM_DIR.mkdir(parents=True)
+    init = dict(rank=0, world_size=1, timeout=timedelta(seconds=300),
+                store=dist.FileStore(str(LM_DIR / "store_nccl"), 1))
+    if "device_id" in inspect.signature(dist.init_process_group).parameters:
+        init["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group("nccl", **init)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = for_mesh(mesh)
+        specs = param_pspecs(cfg, rules, params)
+        ospecs = opt_pspecs(specs, params, dp_axes=rules.dp,
+                            dp_size=rules.dp_size,
+                            mesh_shape=mesh_shape(mesh))
+        L, hd = cfg.n_layers, cfg.resolved_head_dim
+        kv = (L, LOADER_BATCH, LOADER_SEQ, cfg.n_kv_heads, hd)
+        cspecs = cache_pspecs(cfg, rules, {
+            "k": torch.empty(kv, device="meta"),
+            "v": torch.empty(kv, device="meta")}, LOADER_BATCH)
+        leaves = tree_leaves(params)
+        spec_leaves = tree_leaves(specs)
+        kept = all(rules.sharding(s)(x) is x
+                   for s, x in zip(spec_leaves, leaves))
+        all_p = all(isinstance(s, P) for s in spec_leaves +
+                    tree_leaves(ospecs["m"]) + list(cspecs.values()))
+        loader = lm_loader(cfg, rules, batch=LOADER_BATCH, seq=LOADER_SEQ,
+                           seed=LOADER_SEED, depth=LOADER_DEPTH)
+        try:
+            meshed = [next(loader) for _ in range(3)]
+        finally:
+            loader.close()
+        same = all(torch.equal(b[k], lm_batch(cfg, LOADER_BATCH, LOADER_SEQ,
+                                              LOADER_SEED, s)[k])
+                   for s, b in meshed for k in b)
+        steps = [s for s, _ in meshed]
+        out = {"mesh": mesh_shape(mesh), "tp": rules.tp, "dp": rules.dp,
+               "dp_size": rules.dp_size,
+               "specs": {k: repr(specs["layers"][k]) for k in
+                         ("wq", "wk", "wo", "w1", "w2")},
+               "embed": repr(specs["embed"]),
+               "opt_m_w1": repr(ospecs["m"]["layers"]["w1"]),
+               "cache_k": repr(cspecs["k"]),
+               "placements_keep_every_row": kept, "all_specs": all_p,
+               "loader_steps": steps, "loader_bit_identical": same,
+               "worker_stopped": not loader._thread.is_alive()}
+        log(f"specs under the (1, 1) NCCL mesh {out['mesh']}: tp "
+            f"{rules.tp}, dp {rules.dp} of {rules.dp_size}; embed "
+            f"{out['embed']}, layers {out['specs']}; ZeRO-1 m of w1 "
+            f"{out['opt_m_w1']}; cache k {out['cache_k']}; a placement "
+            f"of each of the {len(leaves)} leaves keeps every row (the "
+            f"tensor itself): {kept}; lm_loader under the mesh: steps "
+            f"{steps}, bit-identical to lm_batch {same}, worker stopped "
+            f"{out['worker_stopped']}")
+        if not (kept and all_p and same and out["worker_stopped"]) or \
+                steps != [0, 1, 2]:
+            raise AssertionError("specs, placements or the loader under "
+                                 "the mesh")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def lm_loader_phase(torch, cfg):
+    """24(c): ``lm_loader`` on the card at ``cfg``'s vocabulary: each
+    batch bit for bit ``lm_batch`` made directly on the card, a resume,
+    the worker stopped by ``close()``; ms per batch taken."""
+    from repro_torch.data.pipeline import lm_loader
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.parallel.sharding import for_mesh
+    kw = dict(batch=LOADER_BATCH, seq=LOADER_SEQ, seed=LOADER_SEED,
+              depth=LOADER_DEPTH)
+    loader = lm_loader(cfg, for_mesh(None), **kw)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken = [next(loader) for _ in range(LOADER_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LOADER_STEPS
+    finally:
+        loader.close()
+    stopped = not loader._thread.is_alive()
+
+    def direct(step):
+        return lm_batch(cfg, LOADER_BATCH, LOADER_SEQ, LOADER_SEED, step)
+
+    def same(batch, want):
+        return list(batch) == list(want) and all(
+            batch[k].device == want[k].device and torch.equal(batch[k],
+                                                              want[k])
+            for k in want)
+
+    steps = [s for s, _ in taken]
+    equal = all(same(b, direct(s)) for s, b in taken)
+    resumed = lm_loader(cfg, for_mesh(None), start_step=LOADER_RESUME, **kw)
+    try:
+        r_step, r_batch = next(resumed)
+    finally:
+        resumed.close()
+    r_same = r_step == LOADER_RESUME and same(r_batch,
+                                              taken[LOADER_RESUME][1])
+    tokens = taken[0][1]["tokens"]
+    out = {"ms_per_batch": ms, "steps": steps, "bit_identical": equal,
+           "resume_bit_identical": r_same, "worker_stopped": stopped and
+           not resumed._thread.is_alive(), "tokens": list(tokens.shape),
+           "dtype": str(tokens.dtype), "device": str(tokens.device)}
+    log(f"lm_loader on the card: {LOADER_STEPS} batches of "
+        f"{LOADER_BATCH} x {LOADER_SEQ} ({out['dtype']} on {out['device']}"
+        f", vocabulary {cfg.vocab_size}), depth {LOADER_DEPTH}: {ms:.4f} "
+        f"ms per batch taken; steps {steps[0]}..{steps[-1]}; each "
+        f"bit-identical to lm_batch on the card {equal}; resume at "
+        f"{LOADER_RESUME} regenerates it {r_same}; workers stopped by "
+        f"close() {out['worker_stopped']}")
+    if not (equal and r_same and out["worker_stopped"]) or \
+            steps != list(range(LOADER_STEPS)):
+        raise AssertionError("lm_loader on the card")
+    return out
+
+
+def lm_substrate_phase(torch):
+    """Phase 24: the LM-seed substrates (configs, optim, sharding, data)
+    on the card."""
+    from repro_torch.configs.base import ModelConfig
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**LLAMA_1B)
+    out = {"config": cfg.name, "param_count": cfg.param_count()}
+    parts = {}
+
+    def part(name, run):
+        t = time.perf_counter()
+        result = run()
+        parts[name] = time.perf_counter() - t
+        return result
+
+    params, out["adamw"] = part("adamw", lambda: adamw_card_phase(torch,
+                                                                  cfg))
+    out["specs"] = part("specs", lambda: lm_specs_phase(torch, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    out["adamw_parity"] = part("parity", lambda: adamw_parity_phase(
+        torch, ModelConfig(**SMALL_LM)))
+    out["loader"] = part("loader", lambda: lm_loader_phase(torch, cfg))
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = parts
+    log(f"phase 24: {out['seconds']:.1f} s "
+        f"({ {k: round(v, 2) for k, v in parts.items()} })")
+    return out
+
+
 KERNELS = {
     "starlet2d.smooth": ("src/repro_torch/csrc/starlet2d.cu",
                          "src/repro/kernels/starlet2d/kernel.py:45"),
@@ -3874,6 +4251,9 @@ def main() -> int:
     PHASE17.clear()
     log("== the JAX package's public names on the card; the port's linter")
     report["names_and_lint"] = names_and_lint_phase(torch)
+    log("== the LM-seed substrates on the card: configs, optim, sharding, "
+        "data")
+    report["lm_substrates"] = lm_substrate_phase(torch)
     path_launches = {**report["main_path"]["launches"],
                      **{k: report["scdl_main_path"]["launches"][k]
                         for k in SCDL_KERNELS},
@@ -3944,6 +4324,12 @@ def main() -> int:
         f"DeprecationWarning and one host sync a chunk each; linter over "
         f"{nl['lint']['files']} files clean; {nl['seconds']:.1f} s of "
         f"phase 23")
+    lm = report["lm_substrates"]
+    log(f"substrates: adamw_update at {lm['config']} "
+        f"{lm['adamw']['ms_per_update']:.4f} ms/update against the bound "
+        f"{lm['adamw']['bound_ms']:.4f}, {lm['adamw']['syncs_per_update']} "
+        f"host syncs; loader {lm['loader']['ms_per_batch']:.4f} ms per "
+        f"batch; {lm['seconds']:.1f} s of phase 24")
     report["command_s"] = time.perf_counter() - T_START
     log(f"whole run {report['seconds']:.1f} s after the device check; "
         f"command time {report['command_s']:.1f} s")

@@ -14,6 +14,8 @@ along those axes.
   built once per mesh and names by :func:`axes_of`.  Several names make
   one flattened group: ``("pod", "data")`` sums over both at once, as
   the JAX call does.
+- :class:`P` is the port's ``PartitionSpec``, the specs that
+  ``optim.adamw.opt_pspecs`` and ``parallel.sharding`` compute.
 - :func:`psum` and :func:`psum_tree` sum a tensor, or a dict of them, in
   one all-reduce: the leaves are packed into one flat buffer, each at a
   512-byte boundary as a fresh allocation would be, and come back as
@@ -115,6 +117,31 @@ class Axes(tuple):
 
 
 NO_AXES = Axes()
+
+
+def _canonical_entry(entry):
+    if isinstance(entry, (list, tuple)):
+        entry = tuple(entry)
+        if not entry:
+            return None
+        return entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dimension of a tensor,
+    ``None`` (not split), a mesh axis name, or a tuple of names (split
+    over their product).  The port's ``jax.sharding.PartitionSpec``: a
+    tuple, so ``tuple(jax_spec)`` compares with it, and its entries are
+    canonical as JAX's are (an empty tuple is ``None``, a tuple of one
+    name is that name).  ``parallel.sharding`` turns a spec into a
+    placement on a mesh."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_canonical_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
 
 
 def mesh_shape(mesh) -> Dict[str, int]:

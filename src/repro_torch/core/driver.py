@@ -60,6 +60,7 @@ from repro_torch.core.engine import (init_batched_cost_like,
                                      make_batched_scan_step,
                                      make_chunk_cost_step, make_scan_step,
                                      make_step, state_axes)
+from repro_torch.core.spans import span
 from repro_torch.resilience import chaos as _chaos
 from repro_torch.resilience.errors import DivergenceError
 from repro_torch.resilience.recovery import ResilienceConfig
@@ -163,7 +164,8 @@ class RunLog:
 def _host_costs(trace) -> np.ndarray:
     """The one host sync of a chunk: copy its cost trace to the host."""
     costs = trace["cost"] if isinstance(trace, dict) else trace
-    return costs.detach().cpu().numpy()
+    with span("driver.sync"):
+        return costs.detach().cpu().numpy()
 
 
 class IterativeDriver:
@@ -336,12 +338,13 @@ class IterativeDriver:
     def _launch_chunk(self, data, rep, last, i: int, k: int):
         """Enqueue one K-iteration dispatch; the ``dispatch`` fault point
         fires before any of its work is enqueued."""
-        _chaos.maybe_raise("dispatch", step=i)
-        step = self._scan_step(k)
-        if self._cost_per_chunk or self._skips_cost:
-            data, rep, last, trace = step(data, rep, i, last)
-        else:
-            data, rep, trace = step(data, rep, i)
+        with span("driver.launch"):
+            _chaos.maybe_raise("dispatch", step=i)
+            step = self._scan_step(k)
+            if self._cost_per_chunk or self._skips_cost:
+                data, rep, last, trace = step(data, rep, i, last)
+            else:
+                data, rep, trace = step(data, rep, i)
         return data, rep, last, trace
 
     def _dispatch_chunk(self, data, rep, last, i: int, k: int):

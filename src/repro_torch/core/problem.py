@@ -62,6 +62,7 @@ from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle, _dp_axes, gather
 from repro_torch.core.driver import (BatchedDriver, IterativeDriver, RunLog,
                                      RunOptions)
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device
 from repro_torch.resilience import chaos as _chaos
 from repro_torch.resilience.recovery import RecoveryReport
@@ -420,50 +421,54 @@ def solve(problem: Union[str, Problem, Type[Problem]], *inputs,
     raises ``MeshFaultError`` on every rank (recover with
     ``resume=True`` in a new process group).
     """
-    problem = _as_problem(problem, cfg)
-    opts = _resolved_options(problem, options, run_opts)
-    _check_mesh(mesh)
-    _check_checkpoint_args(opts, checkpoint_dir, resume)
-    bundle = _init_bundle(problem, inputs, resolve_device(device), mesh)
-    start_iter = 0
-    writer = None
-    if checkpoint_dir is not None:
-        # the fingerprint makes a resume under a changed config (same
-        # shapes, other step sizes) fail loudly
-        meta = {"problem": problem.name or type(problem).__name__,
-                "config": _config_fingerprint(problem)}
-        if resume is not False:
-            step = _resume_step(checkpoint_dir, resume)
-            state, _ = ckpt.restore(
-                checkpoint_dir, step,
-                {"data": bundle.data, "replicated": bundle.replicated},
-                records=bundle.record_range,
-                expect_meta=lambda m: m.get("problem") == meta["problem"]
-                and m.get("config") == meta["config"])
-            bundle = bundle.with_data(state["data"],
-                                      replicated=state["replicated"])
-            start_iter = step
-        if opts.checkpoint_every and opts.checkpoint_fn is None:
-            writer = ckpt.Checkpointer(
-                checkpoint_dir, meta=meta,
-                shard=persistence.bundle_shard(bundle))
+    with span("solve"):
+        problem = _as_problem(problem, cfg)
+        opts = _resolved_options(problem, options, run_opts)
+        _check_mesh(mesh)
+        _check_checkpoint_args(opts, checkpoint_dir, resume)
+        with span("solve.init"):
+            bundle = _init_bundle(problem, inputs, resolve_device(device),
+                                  mesh)
+        start_iter = 0
+        writer = None
+        if checkpoint_dir is not None:
+            # the fingerprint makes a resume under a changed config (same
+            # shapes, other step sizes) fail loudly
+            meta = {"problem": problem.name or type(problem).__name__,
+                    "config": _config_fingerprint(problem)}
+            if resume is not False:
+                step = _resume_step(checkpoint_dir, resume)
+                state, _ = ckpt.restore(
+                    checkpoint_dir, step,
+                    {"data": bundle.data, "replicated": bundle.replicated},
+                    records=bundle.record_range,
+                    expect_meta=lambda m: m.get("problem") == meta["problem"]
+                    and m.get("config") == meta["config"])
+                bundle = bundle.with_data(state["data"],
+                                          replicated=state["replicated"])
+                start_iter = step
+            if opts.checkpoint_every and opts.checkpoint_fn is None:
+                writer = ckpt.Checkpointer(
+                    checkpoint_dir, meta=meta,
+                    shard=persistence.bundle_shard(bundle))
 
-            def checkpoint_fn(b: Bundle, i: int) -> None:
-                # i is the last iteration done: i + 1 are in the state
-                writer.save_async(i + 1, persistence.spill_bundle(b))
+                def checkpoint_fn(b: Bundle, i: int) -> None:
+                    # i is the last iteration done: i + 1 are in the state
+                    writer.save_async(i + 1, persistence.spill_bundle(b))
 
-            opts = replace(opts, checkpoint_fn=checkpoint_fn)
-    opts = _with_rollback_dir(opts, checkpoint_dir)
-    driver = IterativeDriver(problem.full_step, bundle,
-                             options=derive_options(problem, opts))
-    with _chaos.maybe_from_env():
-        out = driver.run(start_iter=start_iter)
-    if writer is not None:
-        writer.wait()       # the last write lands before the run is done
-    x, aux = problem.finalize(out, driver.log)
-    return Solution(x=x, aux=aux, log=driver.log, bundle=out,
-                    problem=problem, checkpointer=writer,
-                    recovery=driver.recovery)
+                opts = replace(opts, checkpoint_fn=checkpoint_fn)
+        opts = _with_rollback_dir(opts, checkpoint_dir)
+        driver = IterativeDriver(problem.full_step, bundle,
+                                 options=derive_options(problem, opts))
+        with _chaos.maybe_from_env(), span("solve.run"):
+            out = driver.run(start_iter=start_iter)
+        if writer is not None:
+            writer.wait()       # the last write lands before the run is done
+        with span("solve.finalize"):
+            x, aux = problem.finalize(out, driver.log)
+        return Solution(x=x, aux=aux, log=driver.log, bundle=out,
+                        problem=problem, checkpointer=writer,
+                        recovery=driver.recovery)
 
 
 def _with_rollback_dir(opts: RunOptions, directory) -> RunOptions:

@@ -1,0 +1,34 @@
+"""Profiler spans at the port's layer boundaries.
+
+``span(name)`` is ``torch.profiler.record_function("repro_torch." +
+name)`` while a torch profiler records, and a shared null context
+otherwise, so an untraced call pays one flag check.  There is no
+setting and no store of its own: the profiler records each span's start,
+end and parent on the timeline it shares with the device's work, and its
+chrome trace (``prof.export_chrome_trace``) is what one reads.
+
+The spans (``repro_torch.`` + ...): ``solve`` and its ``solve.init``,
+``solve.run`` and ``solve.finalize`` (``core.problem.solve``);
+``deconvolve.draws`` (the default start vectors and noise drawn on the
+host and copied to the device) and ``deconvolve.norms`` (the operator
+norms' power iterations, up to their host floats) inside ``solve.init``;
+``driver.launch`` (enqueuing one chunk) and ``driver.sync`` (the chunk's
+one host sync) inside ``solve.run``.
+"""
+from __future__ import annotations
+
+from contextlib import nullcontext
+
+import torch
+from torch.autograd import profiler as _profiler
+
+PREFIX = "repro_torch."
+_OFF = nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``repro_torch.<name>`` on the
+    running profiler's timeline; a no-op when none records."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(PREFIX + name)
+    return _OFF

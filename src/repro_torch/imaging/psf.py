@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device, to_device
 
 STAMP = 41
@@ -163,12 +164,14 @@ def spectral_norm(psfs: torch.Tensor, iters: int = 60, *, u0=None, v0=None,
     if kf_pair is None:
         kf_pair = psf_fft_pair(psfs)
     if u0 is None or v0 is None:
-        g = torch.Generator().manual_seed(0)
-        u0 = torch.randn(tuple(psfs.shape), generator=g)
-        v0 = torch.randn(tuple(psfs.shape), generator=g)
+        with span("deconvolve.draws"):
+            g = torch.Generator().manual_seed(0)
+            u0 = torch.randn(tuple(psfs.shape), generator=g).to(psfs.device)
+            v0 = torch.randn(tuple(psfs.shape), generator=g).to(psfs.device)
     u = to_device(u0, psfs.device, torch.float32)
     v = to_device(v0, psfs.device, torch.float32)
-    return float(_power_norm(u, v, kf_pair, iters))
+    with span("deconvolve.norms"):
+        return float(_power_norm(u, v, kf_pair, iters))
 
 
 def _power_norm(u, v, kf_pair, iters: int) -> torch.Tensor:

@@ -25,6 +25,7 @@ import threading
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device, to_device
 from repro_torch.kernels.starlet2d import ops as starlet_batch
 from repro_torch.kernels.starlet2d.ref import cascade
@@ -105,18 +106,20 @@ def spectral_norm(n_scales: int, shape=(41, 41), iters: int = 30, *,
 
 
 def _spectral_norm_impl(n_scales: int, x: torch.Tensor, iters: int) -> float:
-    nrm = None
-    for _ in range(iters):
-        x2 = adjoint(forward(x, n_scales), n_scales)
-        nrm = torch.linalg.vector_norm(x2)
-        x = x2 / (nrm + 1e-12)
-    return float(torch.sqrt(nrm))
+    with span("deconvolve.norms"):
+        nrm = None
+        for _ in range(iters):
+            x2 = adjoint(forward(x, n_scales), n_scales)
+            nrm = torch.linalg.vector_norm(x2)
+            x = x2 / (nrm + 1e-12)
+        return float(torch.sqrt(nrm))
 
 
 @functools.lru_cache(maxsize=None)
 def _spectral_norm_default(n_scales: int, shape: tuple, iters: int,
                            device: str) -> float:
-    x = _cpu_normal(0, shape).to(device)
+    with span("deconvolve.draws"):
+        x = _cpu_normal(0, shape).to(device)
     return _spectral_norm_impl(n_scales, x, iters)
 
 
@@ -128,7 +131,8 @@ def noise_std_scales(n_scales: int, shape=(41, 41), n_mc: int = 8, *,
     module draws it from ``PRNGKey(1)``.  Returns a (J,) fp32 tensor."""
     dev = resolve_device(device)
     if noise is None:
-        noise = _cpu_normal(1, (n_mc,) + tuple(shape))
+        with span("deconvolve.draws"):
+            noise = _cpu_normal(1, (n_mc,) + tuple(shape)).to(dev)
     noise = to_device(noise, dev, torch.float32)
     coeffs = forward(noise, n_scales)                 # (J, n_mc, H, W)
     # jnp.std is the population std: correction=0, not torch's default 1

@@ -74,6 +74,7 @@ from repro_torch.core import checks as _checks
 from repro_torch.core import compat
 from repro_torch.core.bundle import Bundle
 from repro_torch.core.checks import leaves_with_path
+from repro_torch.core.spans import span
 from repro_torch.resilience import chaos as _chaos
 from repro_torch.resilience.errors import (DivergenceError, MeshFaultError,
                                            ResilienceExhausted, classify)
@@ -122,11 +123,12 @@ def host_costs_and_flag(trace, flag: Optional[torch.Tensor]):
     a 0-d flag, and for a :func:`mesh_flag` the tuple of the ranks'
     verdicts (``True``: finite)."""
     costs = trace["cost"] if isinstance(trace, dict) else trace
-    if flag is None:
-        return costs.detach().cpu().numpy(), True
+    with span("driver.sync"):
+        if flag is None:
+            return costs.detach().cpu().numpy(), True
+        both = torch.cat([costs.detach().reshape(-1),
+                          flag.reshape(-1).to(costs.dtype)]).cpu().numpy()
     n = flag.numel()
-    both = torch.cat([costs.detach().reshape(-1),
-                      flag.reshape(-1).to(costs.dtype)]).cpu().numpy()
     head = both[:-n].reshape(tuple(costs.shape))
     if flag.dim() == 0:
         return head, bool(both[-1] != 0)

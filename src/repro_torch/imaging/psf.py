@@ -14,13 +14,18 @@ two independent operands as one batched rfft2 -> multiply -> irfft2.
 
 Random draws are a seam: :func:`spectral_norm` takes its start vectors
 as ``u0=``/``v0=`` and otherwise draws them from a CPU
-``torch.Generator`` seeded 0; :func:`simulate` draws from a
-``torch.Generator`` (seed 42 by default), so it matches the JAX
+``torch.Generator`` seeded 0.  That default draw depends only on the
+shape, so it is made once per shape and device and kept on the device,
+least recently used first under a fixed total of bytes;
+``DEFAULT_STARTS`` counts its hits and misses.  :func:`simulate` draws
+from a ``torch.Generator`` (seed 42 by default), so it matches the JAX
 simulation in distribution only.
 """
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -29,6 +34,19 @@ from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device, to_device
 
 STAMP = 41
+
+# the default start vectors of spectral_norm, (u0, v0) on the device by
+# (shape, device), least recently used first, at most _DEFAULT_STARTS_CAP
+# bytes in all (a larger pair is drawn and used but not kept).  They are
+# read only: _power_norm divides them out of place, and nothing may write
+# into them.  The lock serializes lookups and fills, so concurrent
+# callers of one shape draw once.
+_DEFAULT_STARTS_CAP = 1 << 30
+_DEFAULT_STARTS_LOCK = threading.Lock()
+_default_starts: OrderedDict = OrderedDict()
+# default-draw calls of spectral_norm that found their pair kept (hits)
+# or drew it (misses); injected draws count in neither
+DEFAULT_STARTS = {"hits": 0, "misses": 0}
 
 
 def fast_size(n: int) -> int:
@@ -160,18 +178,48 @@ def spectral_norm(psfs: torch.Tensor, iters: int = 60, *, u0=None, v0=None,
 
     ``u0``/``v0`` are the start vectors, shaped like ``psfs`` (the JAX
     module draws them from the two halves of ``split(PRNGKey(0))``).
+    Without them the CPU seed-0 draw is taken, kept per shape and device
+    (``DEFAULT_STARTS`` counts the hits and misses).
     """
     if kf_pair is None:
         kf_pair = psf_fft_pair(psfs)
     if u0 is None or v0 is None:
-        with span("deconvolve.draws"):
-            g = torch.Generator().manual_seed(0)
-            u0 = torch.randn(tuple(psfs.shape), generator=g).to(psfs.device)
-            v0 = torch.randn(tuple(psfs.shape), generator=g).to(psfs.device)
-    u = to_device(u0, psfs.device, torch.float32)
-    v = to_device(v0, psfs.device, torch.float32)
+        u, v = _default_starts_for(tuple(psfs.shape), psfs.device)
+    else:
+        u = to_device(u0, psfs.device, torch.float32)
+        v = to_device(v0, psfs.device, torch.float32)
     with span("deconvolve.norms"):
         return float(_power_norm(u, v, kf_pair, iters))
+
+
+def _default_starts_for(shape: tuple, device: torch.device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CPU seed-0 draw of ``u0`` then ``v0``, fp32 on ``device``:
+    kept from an earlier call, or drawn now (and kept if it fits)."""
+    key = (shape, str(device))
+    with _DEFAULT_STARTS_LOCK:
+        pair = _default_starts.get(key)
+        if pair is not None:
+            _default_starts.move_to_end(key)
+            DEFAULT_STARTS["hits"] += 1
+            return pair
+        DEFAULT_STARTS["misses"] += 1
+        with span("deconvolve.draws"):
+            g = torch.Generator().manual_seed(0)
+            pair = tuple(torch.randn(shape, generator=g).to(device,
+                                                           torch.float32)
+                         for _ in range(2))
+        size = _nbytes(pair)
+        if size <= _DEFAULT_STARTS_CAP:
+            kept = sum(map(_nbytes, _default_starts.values()))
+            while kept + size > _DEFAULT_STARTS_CAP:
+                kept -= _nbytes(_default_starts.popitem(last=False)[1])
+            _default_starts[key] = pair
+        return pair
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _power_norm(u, v, kf_pair, iters: int) -> torch.Tensor:

@@ -5,8 +5,14 @@ Inputs are drawn with numpy from a seed, or taken from the JAX
 ``simulate``.  Tolerances: fp32 rtol/atol 2e-5 for one convolution (the
 two FFT libraries round differently); the adjoint identity at the JAX
 package's own 1e-4 (``tests/test_imaging.py``); the power-iteration norm,
-60 chained round trips, at rtol 1e-5.
+60 chained round trips, at rtol 1e-5.  The start vectors that
+``spectral_norm`` keeps per shape are held bit for bit to a fresh CPU
+seed-0 draw, and a solve after a hit to one after a miss.
 """
+import threading
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +20,9 @@ import pytest
 import torch
 
 from repro.imaging import psf as jpsf
+from repro_torch.core.problem import solve
 from repro_torch.imaging import psf
+from repro_torch.imaging.condat import SolverConfig
 
 torch.set_num_threads(2)
 
@@ -151,3 +159,140 @@ def test_simulate_without_cuda_needs_cpu_device():
         pytest.skip("checks the behaviour on a host without a card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         psf.simulate(2, stamp=9)
+
+
+# ---------------------------------------------------------------------
+# The kept default start vectors of spectral_norm
+# ---------------------------------------------------------------------
+
+@pytest.fixture
+def starts(monkeypatch):
+    """An empty memo and zeroed counters for the test alone."""
+    kept = OrderedDict()
+    monkeypatch.setattr(psf, "_default_starts", kept)
+    monkeypatch.setitem(psf.DEFAULT_STARTS, "hits", 0)
+    monkeypatch.setitem(psf.DEFAULT_STARTS, "misses", 0)
+    return kept
+
+
+def _seed0_draw(shape):
+    g = torch.Generator().manual_seed(0)
+    u0 = torch.randn(shape, generator=g)
+    return u0, torch.randn(shape, generator=g)
+
+
+def _counts():
+    return psf.DEFAULT_STARTS["hits"], psf.DEFAULT_STARTS["misses"]
+
+
+def _pair_bytes(shape):
+    return 2 * 4 * int(np.prod(shape))
+
+
+@pytest.mark.parametrize("shape", [(3, 9, 9), (2, 21, 21), (1, 41, 41)])
+def test_default_starts_are_the_seed0_draw(starts, shape):
+    psf.spectral_norm(_t(_normal(1, shape)), iters=4)
+    assert _counts() == (0, 1)
+    (key, (u, v)), = starts.items()
+    assert key == (shape, "cpu")
+    u0, v0 = _seed0_draw(shape)
+    assert u.dtype == v.dtype == torch.float32
+    assert torch.equal(u, u0) and torch.equal(v, v0)
+
+
+def test_second_default_call_hits_with_the_same_norm(starts):
+    P = _t(_normal(2, (4, 21, 21)))
+    first = psf.spectral_norm(P)
+    second = psf.spectral_norm(P)
+    assert _counts() == (1, 1)
+    u0, v0 = _seed0_draw((4, 21, 21))
+    assert first == second == psf.spectral_norm(P, u0=u0, v0=v0)
+
+
+@pytest.mark.parametrize("kind", ["tensor", "numpy"])
+def test_injected_draws_bypass_the_memo(starts, kind):
+    u0, v0 = _seed0_draw((3, 9, 9))
+    if kind == "numpy":
+        u0, v0 = u0.numpy(), v0.numpy()
+    psf.spectral_norm(_t(_normal(3, (3, 9, 9))), iters=4, u0=u0, v0=v0)
+    assert _counts() == (0, 0)
+    assert not starts
+
+
+def test_two_shapes_make_two_entries(starts):
+    for shape in ((3, 9, 9), (5, 9, 9), (3, 9, 9)):
+        psf.spectral_norm(_t(_normal(4, shape)), iters=2)
+    assert list(starts) == [((5, 9, 9), "cpu"), ((3, 9, 9), "cpu")]
+    assert _counts() == (1, 2)
+
+
+def test_least_recently_used_entry_is_evicted(starts, monkeypatch):
+    """Room for the pairs of three and four 9 x 9 stamps: a third shape
+    evicts the one used least recently, not the one drawn first."""
+    monkeypatch.setattr(psf, "_DEFAULT_STARTS_CAP",
+                        _pair_bytes((3, 9, 9)) + _pair_bytes((4, 9, 9)))
+    a, b, c = (_t(_normal(5, (n, 9, 9))) for n in (2, 3, 4))
+    for P in (a, b, a, c):
+        psf.spectral_norm(P, iters=2)
+    assert list(starts) == [((2, 9, 9), "cpu"), ((4, 9, 9), "cpu")]
+    assert _counts() == (1, 3)
+    psf.spectral_norm(b, iters=2)
+    assert list(starts) == [((4, 9, 9), "cpu"), ((3, 9, 9), "cpu")]
+    assert _counts() == (1, 4)
+
+
+def test_pair_over_the_cap_is_used_but_not_kept(starts, monkeypatch):
+    monkeypatch.setattr(psf, "_DEFAULT_STARTS_CAP",
+                        _pair_bytes((2, 9, 9)))
+    small, large = _t(_normal(6, (2, 9, 9))), _t(_normal(6, (3, 9, 9)))
+    psf.spectral_norm(small, iters=2)
+    got = psf.spectral_norm(large, iters=8)
+    assert list(starts) == [((2, 9, 9), "cpu")]
+    u0, v0 = _seed0_draw((3, 9, 9))
+    assert got == psf.spectral_norm(large, iters=8, u0=u0, v0=v0)
+    psf.spectral_norm(large, iters=2)
+    assert _counts() == (0, 3)
+
+
+def _small_catalogue():
+    d = psf.simulate(12, torch.Generator().manual_seed(5), stamp=13,
+                     device="cpu")
+    return d.Y, d.psfs
+
+
+def _default_solve(Y, P):
+    return solve("deconvolve", Y, P, cfg=SolverConfig(n_scales=3),
+                 device="cpu", max_iter=8, chunk=4, tol=0.0)
+
+
+def test_solve_leaves_the_kept_starts_unwritten(starts):
+    Y, P = _small_catalogue()
+    _default_solve(Y, P)
+    (u, v), = starts.values()
+    u0, v0 = _seed0_draw(tuple(P.shape))
+    assert torch.equal(u, u0) and torch.equal(v, v0)
+
+
+def test_solve_after_a_hit_is_bit_identical_to_after_a_miss(starts):
+    Y, P = _small_catalogue()
+    miss = _default_solve(Y, P)
+    assert _counts() == (0, 1)
+    hit = _default_solve(Y, P)
+    assert _counts() == (1, 1)
+    np.testing.assert_array_equal(miss.x, hit.x)
+    assert miss.log.costs == hit.log.costs
+
+
+def test_concurrent_callers_of_one_shape_draw_once(starts):
+    P = _t(_normal(7, (4, 15, 15)))
+    barrier = threading.Barrier(8)
+
+    def call():
+        barrier.wait()
+        return psf.spectral_norm(P, iters=6)
+
+    with ThreadPoolExecutor(8) as pool:
+        norms = list(pool.map(lambda _: call(), range(8)))
+    assert _counts() == (7, 1)
+    assert len(set(norms)) == 1
+    assert len(starts) == 1

@@ -31,8 +31,10 @@ PARENT = {"solve": None, "solve.init": "solve", "solve.run": "solve",
 
 def _deconvolve(**kw):
     d = psf.simulate(24, stamp=15, device="cpu")
-    # the memoized starlet norm is drawn and iterated on its first call
+    # the memoized starlet norm is drawn and iterated on its first call,
+    # and the PSF's kept start vectors are drawn on theirs
     starlet._spectral_norm_default.cache_clear()
+    psf._default_starts.clear()
     sol = solve("deconvolve", d.Y, d.psfs, cfg=SolverConfig(n_scales=3),
                 device="cpu", max_iter=ITERS, chunk=CHUNK, tol=0.0, **kw)
     return sol.x, sol.log.costs

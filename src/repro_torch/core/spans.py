@@ -9,11 +9,15 @@ chrome trace (``prof.export_chrome_trace``) is what one reads.
 
 The spans (``repro_torch.`` + ...): ``solve`` and its ``solve.init``,
 ``solve.run`` and ``solve.finalize`` (``core.problem.solve``);
-``deconvolve.draws`` (the default start vectors and noise drawn on the
-host and copied to the device) and ``deconvolve.norms`` (the operator
-norms' power iterations, up to their host floats) inside ``solve.init``;
-``driver.launch`` (enqueuing one chunk) and ``driver.sync`` (the chunk's
-one host sync) inside ``solve.run``.
+``deconvolve.draws`` (the default start vectors, noise and low-rank
+test matrix drawn on the host and copied to the device) and
+``deconvolve.norms`` (the operator norms' power iterations, up to their
+host floats) inside ``solve.init``; ``driver.launch`` (enqueuing one
+chunk) and ``driver.sync`` (the chunk's one host sync) inside
+``solve.run``; ``lowrank.svt`` (one randomized SVT,
+``imaging.lowrank.randomized_svt_local``) and ``lowrank.nuclear`` (the
+range finder's nuclear norm, ``imaging.lowrank.nuclear_norm_rf``)
+wherever they are called, inside ``driver.launch`` in a solve.
 """
 from __future__ import annotations
 

@@ -46,6 +46,7 @@ constructor's.
 from __future__ import annotations
 
 import warnings
+from contextlib import nullcontext
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,6 +56,7 @@ from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle, gather_leaf
 from repro_torch.core.compat import psum
 from repro_torch.core.problem import Problem, register, solve
+from repro_torch.core.spans import span
 from repro_torch.imaging import lowrank as lr
 from repro_torch.imaging import psf as psf_op
 from repro_torch.imaging.condat import (SolverConfig, check_mode,
@@ -115,8 +117,11 @@ def build_bundle(Y, psfs, cfg: SolverConfig, *, device=None,
         data["CX"] = starlet_batch.forward(X0, cfg.n_scales)  # (J, n, S, S)
     else:
         data["Xd"] = torch.zeros_like(Y)                      # (n, S, S)
-        replicated["omega"] = lr.resolve_omega(
-            omega, Y.shape[-1] * Y.shape[-2], cfg.rank, lr.OVERSAMPLE, dev)
+        # the default test matrix is a host draw, like the norms' starts
+        with span("deconvolve.draws") if omega is None else nullcontext():
+            replicated["omega"] = lr.resolve_omega(
+                omega, Y.shape[-1] * Y.shape[-2], cfg.rank, lr.OVERSAMPLE,
+                dev)
     bundle = Bundle.create(data, replicated=replicated, device=dev,
                            record_axes={k: 1 for k in scale_major(data)},
                            mesh=mesh)

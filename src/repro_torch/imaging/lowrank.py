@@ -62,6 +62,7 @@ from repro_torch.core.batching import BatchAxes
 from repro_torch.core.bundle import Bundle, gather_leaf
 from repro_torch.core.compat import psum
 from repro_torch.core.problem import Problem, register
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import to_device
 from repro_torch.kernels.jacobi import ops as jacobi_ops
 
@@ -92,23 +93,24 @@ def randomized_svt_local(a_local: torch.Tensor, omega: torch.Tensor,
     products over the rows are summed over them).  ``use_kernel=False``
     takes the factorizations' plain versions on the card, for
     comparison."""
-    if isinstance(thresh, torch.Tensor) and thresh.dim():
-        thresh = thresh.unsqueeze(-1)
-    y = a_local @ omega                              # (n, r)
-    gram = psum(_over_records(y, y), axes)           # (r, r)
-    # orthogonalise through the Gram eigendecomposition (rank-deficient
-    # safe: null directions are clipped)
-    evals, evecs = jacobi_ops.eigh(gram, use_kernel=use_kernel)
-    scale = torch.where(evals > eps * evals.amax(dim=-1, keepdim=True),
-                        torch.rsqrt(torch.clamp(evals, min=1e-30)),
-                        torch.zeros_like(evals))
-    q = y @ (evecs * scale.unsqueeze(-2))            # (n, r) orthonormal
-    b = psum(_over_records(q, a_local), axes)        # (r, p)
-    # svd(B) through B^T = Q_B R: B = R^T Q_B^T, R^T = U S W^T
-    q_b, r_b = torch.linalg.qr(b.mT)                 # (p, r), (r, r)
-    u, s, wt = jacobi_ops.svd(r_b.mT, use_kernel=use_kernel)
-    s = torch.clamp(s - thresh, min=0.0)
-    return ((q @ u) * s.unsqueeze(-2)) @ (q_b @ wt.mT).mT   # (n, p)
+    with span("lowrank.svt"):
+        if isinstance(thresh, torch.Tensor) and thresh.dim():
+            thresh = thresh.unsqueeze(-1)
+        y = a_local @ omega                              # (n, r)
+        gram = psum(_over_records(y, y), axes)           # (r, r)
+        # orthogonalise through the Gram eigendecomposition (rank-deficient
+        # safe: null directions are clipped)
+        evals, evecs = jacobi_ops.eigh(gram, use_kernel=use_kernel)
+        scale = torch.where(evals > eps * evals.amax(dim=-1, keepdim=True),
+                            torch.rsqrt(torch.clamp(evals, min=1e-30)),
+                            torch.zeros_like(evals))
+        q = y @ (evecs * scale.unsqueeze(-2))            # (n, r) orthonormal
+        b = psum(_over_records(q, a_local), axes)        # (r, p)
+        # svd(B) through B^T = Q_B R: B = R^T Q_B^T, R^T = U S W^T
+        q_b, r_b = torch.linalg.qr(b.mT)                 # (p, r), (r, r)
+        u, s, wt = jacobi_ops.svd(r_b.mT, use_kernel=use_kernel)
+        s = torch.clamp(s - thresh, min=0.0)
+        return ((q @ u) * s.unsqueeze(-2)) @ (q_b @ wt.mT).mT   # (n, p)
 
 
 # the range finder's columns beyond the target rank, where a caller names
@@ -166,12 +168,16 @@ def _masked_residual(d):
 def nuclear_norm_rf(X_loc, omega, axes):
     """Range-finder nuclear norm: the sum of the square roots of the
     eigenvalues of the projection's (r, r) Gram (``jacobi.eigh``
-    without vectors) — exact when rank(X) <= r, as for every post-SVT
-    iterate.  Shared by the low-rank deconvolution objective and the
-    completion workload.  The Gram is summed over ``axes``."""
-    y = X_loc @ omega
-    s2 = jacobi_ops.eigh(psum(_over_records(y, y), axes), compute_v=False)
-    return torch.sum(torch.sqrt(torch.clamp(s2, min=0.0)), dim=-1)
+    without vectors), which is the nuclear norm of X Omega: an estimate
+    of ||X||_* scaled by Omega (E[Omega Omega^T] = (r / p) I, so about
+    sqrt(r / p) of it), as the JAX module computes it.  Shared by the
+    low-rank deconvolution objective and the completion workload.  The
+    Gram is summed over ``axes``."""
+    with span("lowrank.nuclear"):
+        y = X_loc @ omega
+        s2 = jacobi_ops.eigh(psum(_over_records(y, y), axes),
+                             compute_v=False)
+        return torch.sum(torch.sqrt(torch.clamp(s2, min=0.0)), dim=-1)
 
 
 @register("lowrank")

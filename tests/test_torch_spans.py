@@ -1,10 +1,12 @@
 """The port's profiler spans (``repro_torch.core.spans``).
 
-Under ``torch.profiler.profile`` a small sparse deconvolution and a
-small SCDL training record the spans of ``core.spans``' docstring, each
-inside the span that calls it, siblings disjoint, one ``driver.launch``
-and one ``driver.sync`` a chunk (supervised too).  The profiler changes
-no result, and with none running no ``record_function`` is made."""
+Under ``torch.profiler.profile`` a small sparse deconvolution, a small
+low-rank one and a small SCDL training record the spans of
+``core.spans``' docstring, each inside the span that calls it, siblings
+disjoint, one ``driver.launch`` and one ``driver.sync`` a chunk
+(supervised too), one ``lowrank.svt`` an iteration and one
+``lowrank.nuclear`` a chunk.  The profiler changes no result, and with
+none running no ``record_function`` is made."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from repro_torch.core.spans import PREFIX
 from repro_torch.data.synthetic import coupled_patches
 from repro_torch.imaging import psf, starlet
 from repro_torch.imaging.condat import SolverConfig
+from repro_torch.imaging.deconvolve import DeconvolutionProblem
 from repro_torch.imaging.scdl import SCDLConfig
 from repro_torch.resilience.recovery import ResilienceConfig
 
@@ -26,7 +29,8 @@ CHUNKS = ITERS // CHUNK
 PARENT = {"solve": None, "solve.init": "solve", "solve.run": "solve",
           "solve.finalize": "solve", "deconvolve.draws": "solve.init",
           "deconvolve.norms": "solve.init", "driver.launch": "solve.run",
-          "driver.sync": "solve.run"}
+          "driver.sync": "solve.run", "lowrank.svt": "driver.launch",
+          "lowrank.nuclear": "driver.launch"}
 
 
 def _deconvolve(**kw):
@@ -40,6 +44,16 @@ def _deconvolve(**kw):
     return sol.x, sol.log.costs
 
 
+def _lowrank(omega=None, **kw):
+    d = psf.simulate(24, stamp=15, device="cpu")
+    psf._default_starts.clear()
+    problem = DeconvolutionProblem(SolverConfig(mode="lowrank", lam=0.05,
+                                                rank=4), omega=omega)
+    sol = solve(problem, d.Y, d.psfs, device="cpu", max_iter=ITERS,
+                chunk=CHUNK, tol=0.0, cost_every="chunk", **kw)
+    return sol.x, sol.log.costs
+
+
 def _scdl(**kw):
     S_h, S_l = coupled_patches(128, 25, 9, 16, device="cpu")
     sol = solve("scdl", S_h, S_l, cfg=SCDLConfig(n_atoms=16), device="cpu",
@@ -47,7 +61,7 @@ def _scdl(**kw):
     return sol.x, sol.log.costs
 
 
-RUNS = {"deconvolve": _deconvolve, "scdl": _scdl}
+RUNS = {"deconvolve": _deconvolve, "lowrank": _lowrank, "scdl": _scdl}
 
 
 def _profiled(run, **kw):
@@ -106,6 +120,13 @@ def test_spans_nest_as_the_call_stack(profiled, kind, supervised):
         # starlet's start vector; the PSF's and the starlet's norms
         assert names.count("deconvolve.draws") == 3
         assert names.count("deconvolve.norms") == 2
+    elif kind == "lowrank":
+        # the PSF's start vectors and the test matrix; the PSF's norm;
+        # an SVT an iteration, a nuclear norm a chunk (cost_every="chunk")
+        assert names.count("deconvolve.draws") == 2
+        assert names.count("deconvolve.norms") == 1
+        assert names.count("lowrank.svt") == ITERS
+        assert names.count("lowrank.nuclear") == CHUNKS
     else:
         assert "deconvolve.draws" not in names
         assert "deconvolve.norms" not in names
@@ -131,8 +152,36 @@ def test_no_record_function_without_a_profiler(monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", counting)
     _deconvolve()
+    _lowrank()
     _scdl(resilience=ResilienceConfig())
     assert made == []
     # the count sees the spans when a profiler records
     _profiled(_scdl)
     assert PREFIX + "driver.launch" in made
+
+
+def test_lowrank_spans_per_chunk(profiled):
+    """Each chunk's launch holds its iterations' SVTs and, at its end,
+    the chunk's one nuclear norm."""
+    _, spans = profiled("lowrank")
+    launches = [(a, b) for n, a, b in spans if n == "driver.launch"]
+    assert len(launches) == CHUNKS
+    for a, b in launches:
+        inside = [n for n, s0, s1 in spans if a <= s0 and s1 <= b]
+        assert inside.count("lowrank.svt") == CHUNK
+        assert inside.count("lowrank.nuclear") == 1
+
+
+def test_injected_test_matrix_is_no_draw():
+    """The test matrix is drawn under ``deconvolve.draws`` only when the
+    caller injects none; injected, the draws are the PSF's alone, and
+    the result is the one of the default draw."""
+    from repro_torch.imaging import lowrank
+    omega = lowrank.make_test_matrix(15 * 15, 4)
+    (x0, c0), default = _profiled(_lowrank)
+    (x1, c1), injected = _profiled(_lowrank, omega=omega)
+    names = [s[0] for s in injected]
+    assert names.count("deconvolve.draws") == 1
+    assert [s[0] for s in default].count("deconvolve.draws") == 2
+    np.testing.assert_array_equal(x0, x1)
+    assert c0 == c1

@@ -15,12 +15,15 @@ prints its final line):
 3. kernels against their plain PyTorch versions on the card, at the
    main path's shapes and at small, ragged and bf16 shapes; the fused
    starlet transforms (Phi, Phi^T) also pass the dot-product test and
-   give bit-identical results on a second call;
+   give bit-identical results on a second call; the PSF convolution in
+   its three forms (H, the gradient's Ht(HX - Y), the power step's pair)
+   on the 81-, 64- and 36-point grids;
 4. the main path at survey width: ``solve("deconvolve", ...)`` on
    10 000 simulated 41x41 stamps with J = 4 starlet scales; the launch
    counters, reset just before, must show every kernel on the path
-   (one Phi and one Phi^T an iteration, no single smoothing) and one
-   host sync per chunk;
+   (one Phi and one Phi^T an iteration, no single smoothing, two PSF
+   convolutions an iteration and 62 at set-up) and one host sync per
+   chunk;
    then one more chunk of its iteration runs under torch.profiler, for
    the device time of each part and the device's idle share;
 5. the same solve at n = 256 on the card and on the CPU (plain
@@ -214,13 +217,17 @@ PARITY_N, PARITY_ITERS, PARITY_CHUNK = 256, 24, 8
 # and FMA contraction; bf16: one rounding of the output
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-# card against CPU, cost trajectories of the whole solve: cuFFT and
-# pocketfft round differently, and the reductions sum in another order
+# card against CPU, cost trajectories of the whole solve: the PSF kernel
+# and pocketfft round differently, and the reductions sum in another order
 PARITY_RTOL = 1e-4
 # the main path's setup runs the starlet transforms outside the loop:
 # 30 power-iteration steps (one Phi and one Phi^T each), the noise
 # calibration (one Phi) and the first coefficients CX (one Phi)
 SETUP_FORWARDS, SETUP_ADJOINTS = 32, 30
+# and the PSF convolutions outside the loop: 60 power-iteration steps (one
+# pair each), the first iterate X0 = Ht(Y) and its H(X0); an iteration
+# runs two, the gradient's Ht(HX - Y) and H(X_new)
+SETUP_CONVOLUTIONS, SETUP_PAIRS = 62, 60
 
 # SCDL at the paper's grayscale patch shape (benchmarks/bench_scdl.py),
 # the SCDLConfig default of 512 atoms and the K ~ 40k both TPU kernels
@@ -439,6 +446,72 @@ def kernel_phase(torch):
                     TOL[str(dtype).split(".")[1]])
         if shape[1] == MAIN_N:
             errs["condat_elwise.dual"] = e
+    errs.update(psf_conv_check(torch, g))
+    return errs
+
+
+def psf_spectra(torch, g, n, stamp, kernel):
+    """The carried (kf, conj kf) pair of n normalized random PSFs
+    ``kernel`` wide on the grid of a ``stamp``-wide stamp."""
+    from repro_torch.imaging.psf import pad_for, psf_fft_pair
+    p = torch.rand((n, kernel, kernel), generator=g, device="cuda")
+    return psf_fft_pair(p / p.sum(dim=(-2, -1), keepdim=True),
+                        pad_for(stamp, kernel))
+
+
+def psf_conv_forms(X, Y, kf, use_kernel=None):
+    """The kernel's three forms on the path: H (Ht alike, off the other
+    slab), the gradient's Ht(X - Y) and the pair as the power iteration
+    runs it (H X / s, Ht Y / s and their sums of squares)."""
+    import torch
+    from repro_torch.kernels.psf_conv.ops import convolve, power_step
+    s = torch.tensor(1.25, device=X.device)
+    return {"psf_conv": lambda: (convolve(X, kf[..., 0, :, :],
+                                          use_kernel=use_kernel),),
+            "psf_conv.grad": lambda: (convolve(X, kf[..., 1, :, :], minus=Y,
+                                               use_kernel=use_kernel),),
+            "psf_conv.pair": lambda: power_step(X, Y, kf, s,
+                                                use_kernel=use_kernel)}
+
+
+def psf_conv_check(torch, g):
+    """The PSF convolution against its plain version (cuFFT): the main
+    path's 41 x 41 stamps on the 81-point grid, a PSF smaller than the
+    stamp (grid 64), 32 wide (grid 64), 17 wide (grid 36) with bucket
+    axes, one stamp, and bf16 stamps.  Tolerance: fp32 2e-6 of the
+    largest entry (the butterflies sum in another order than cuFFT's),
+    bf16 1e-2 (one rounding of the result).  Two calls at the main shape
+    are bit-identical."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {k: 0.0 for k in PSF_KERNELS}
+    for lead, stamp, kernel, dtype in (
+            ((MAIN_N,), STAMP, STAMP, f32), ((64,), STAMP, 21, f32),
+            ((257,), 32, 32, f32), ((3, 43), 17, 17, f32),
+            ((1,), STAMP, STAMP, f32), ((100,), STAMP, STAMP, bf16)):
+        shape = lead + (stamp, stamp)
+        X, Y = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        kf = psf_spectra(torch, g, math.prod(lead), stamp, kernel)
+        kf = kf.reshape(lead + tuple(kf.shape[1:]))
+        frac = 2e-6 if dtype == f32 else 1e-2
+        plain = psf_conv_forms(X, Y, kf, use_kernel=False)
+        for name, fn in psf_conv_forms(X, Y, kf).items():
+            if name == "psf_conv.pair" and dtype != f32:
+                continue               # the power iteration runs in fp32
+            got, want = fn(), plain[name]()
+            torch.cuda.synchronize()
+            # each output against its own largest entry; the power step's
+            # sums of squares (0-d) at 1e-5, two fp32 sums of 16.8 M
+            # squares in other orders
+            e = max(compare(f"{name} {shape} PSF {kernel} {dtype}", a, b,
+                            dict(rtol=0.0, atol=(frac if b.dim() else 1e-5)
+                                 * float(b.float().abs().max())))
+                    for a, b in zip(got, want))
+            if lead == (MAIN_N,):
+                errs[name] = e
+                if not all(torch.equal(a, b) for a, b in zip(got, fn())):
+                    raise AssertionError(f"{name} {shape}: two calls differ")
+    log(f"  psf_conv {(MAIN_N, STAMP, STAMP)}: two calls bit-identical")
     return errs
 
 
@@ -450,6 +523,9 @@ SCDL_KERNELS = ("admm_elwise", "dict_outer_pair", "dict_outer")
 
 
 LOWRANK_KERNELS = ("condat_elwise.primal_xbar", "jacobi.eigh", "jacobi.svd")
+# the PSF convolution, shared by both deconvolution paths (every launch,
+# and the pair and the gradient's forms counted apart too)
+PSF_KERNELS = ("psf_conv", "psf_conv.pair", "psf_conv.grad")
 # the Condat passes with a step size per instance, on phase 17's bucket
 BATCHED_KERNELS = ("condat_elwise.primal_batched",
                    "condat_elwise.dual_batched")
@@ -465,6 +541,7 @@ def counters():
     from repro_torch.kernels.dict_outer.kernel import (dict_outer_fwd,
                                                        dict_outer_pair_fwd)
     from repro_torch.kernels.jacobi.kernel import eigh_fwd, svd_fwd
+    from repro_torch.kernels.psf_conv.kernel import psf_conv_fwd
     from repro_torch.kernels.starlet2d.kernel import (smooth_fwd,
                                                       starlet_adjoint_fwd,
                                                       starlet_forward_fwd)
@@ -477,13 +554,16 @@ def counters():
            "dict_outer_pair": dict_outer_pair_fwd,
            "dict_outer": dict_outer_fwd,
            "jacobi.eigh": eigh_fwd,
-           "jacobi.svd": svd_fwd}
+           "jacobi.svd": svd_fwd,
+           "psf_conv": psf_conv_fwd}
     out = {name: (fn, "launches") for name, fn in fns.items()}
     out["condat_elwise.primal_xbar"] = (condat_primal_fwd, "launches_xbar")
     # a step size per instance (a bucket of solve_many), counted apart too
     out["condat_elwise.primal_batched"] = (condat_primal_fwd,
                                            "launches_batched")
     out["condat_elwise.dual_batched"] = (condat_dual_fwd, "launches_batched")
+    out["psf_conv.pair"] = (psf_conv_fwd, "launches_pair")
+    out["psf_conv.grad"] = (psf_conv_fwd, "launches_grad")
     return out
 
 
@@ -560,6 +640,7 @@ def main_path_phase(torch):
     if any(launches[k] for k in SCDL_KERNELS + LOWRANK_KERNELS):
         raise AssertionError(f"SCDL or low-rank kernels launched on the "
                              f"sparse deconvolution path: {launches}")
+    check_convolutions(launches, it, "main path")
     evaluated = evaluated_costs(sol.log.costs, MAIN_CHUNK)
     if not all(math.isfinite(c) for c in evaluated):
         raise AssertionError(f"non-finite evaluated cost: {evaluated}")
@@ -586,6 +667,16 @@ def main_path_phase(torch):
             "mse_observed": mse_obs}, sol.bundle
 
 
+def check_convolutions(launches, it, label):
+    """Every convolution of a deconvolution path on the PSF kernel: two
+    an iteration, the set-up's 62, the power iteration's 60 as pairs."""
+    want = {"psf_conv": 2 * it + SETUP_CONVOLUTIONS,
+            "psf_conv.pair": SETUP_PAIRS, "psf_conv.grad": it}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: PSF convolution launches "
+                             f"{launches}, expected {want}")
+
+
 # ---------------------------------------------------------------- 4b
 # kernel-name fragments -> the part of the iteration they belong to
 PARTS = (("starlet2d.forward", ("starlet_forward",)),
@@ -593,6 +684,7 @@ PARTS = (("starlet2d.forward", ("starlet_forward",)),
          ("starlet2d.smooth", ("starlet_smooth",)),
          ("condat_elwise.primal", ("condat_primal",)),
          ("condat_elwise.dual", ("condat_dual",)),
+         ("psf_conv", ("psf_conv",)),
          ("fft", ("fft", "FFT")))
 
 
@@ -872,6 +964,47 @@ def timing_phase(torch):
         "plain_ms": time_ms(torch, lambda: condat_dual(
             U, Cn, Co, W, sig, use_kernel=False)),
         "library_ms": None, "bound_ms": t_bound, "bound_by": by}
+    del U, Cn, Co
+    out.update(psf_conv_timing(torch, g))
+    return out
+
+
+def psf_conv_flops(stamp, grid):
+    """A stamp's operations in the kernel, at 5 N log2 N a complex
+    transform of length N: (S + 1) / 2 packed rows each way, G / 2 + 1
+    columns each way, the complex product over the half spectrum."""
+    t = 5 * grid * math.log2(grid)
+    return (2 * ((stamp + 1) // 2) + 2 * (grid // 2 + 1)) * t \
+        + 6 * grid * (grid // 2 + 1)
+
+
+def psf_conv_timing(torch, g):
+    """The kernel's three forms at the main path's shapes beside their
+    plain versions (cuFFT and PyTorch) and their bounds: each operand,
+    minus and output read or written once, each stamp's spectrum slab
+    once an operand (the pair's second read of a slab may come from L2;
+    it is counted)."""
+    from repro_torch.imaging.psf import pad_for
+    X, Y = (torch.randn((MAIN_N, STAMP, STAMP), generator=g, device="cuda")
+            for _ in range(2))
+    kf = psf_spectra(torch, g, MAIN_N, STAMP, STAMP)
+    grid = pad_for(STAMP)
+    plane = X.numel() * 4
+    slab = MAIN_N * grid * (grid // 2 + 1) * 8
+    flops = MAIN_N * psf_conv_flops(STAMP, grid)
+    sizes = {"psf_conv": (2 * plane + slab, flops),
+             "psf_conv.grad": (3 * plane + slab, flops),
+             "psf_conv.pair": (4 * plane + 2 * slab, 2 * flops)}
+    plain = psf_conv_forms(X, Y, kf, use_kernel=False)
+    out = {}
+    for name, fn in psf_conv_forms(X, Y, kf).items():
+        t_bound, by = bound(*sizes[name])
+        out[name] = {"ms": time_ms(torch, fn),
+                     "plain_ms": time_ms(torch, plain[name]),
+                     "library_ms": None, "bound_ms": t_bound,
+                     "bound_by": by}
+        log(f"  {name}: {out[name]['ms']:.4f} ms (plain "
+            f"{out[name]['plain_ms']:.4f}, bound {t_bound:.4f} by {by})")
     return out
 
 
@@ -1000,7 +1133,7 @@ def scdl_main_path_phase(torch):
         raise AssertionError(f"admm_elwise/dict_outer_pair launches "
                              f"{launches} != iters_run {it}")
     if any(launches[k] for k in DECONV_KERNELS + LOWRANK_KERNELS
-           + ("dict_outer",)):
+           + PSF_KERNELS + ("dict_outer",)):
         raise AssertionError(f"kernels off the SCDL path launched: "
                              f"{launches}")
     if syncs_per_chunk != 1:
@@ -1353,6 +1486,7 @@ LR_PARTS = (("condat_elwise.primal", ("condat_primal",)),
             ("jacobi", ("jacobi",)),
             # cuSOLVER's Householder QR (geqrf) and the reduced Q (orgqr)
             ("qr", ("geqr", "orgqr", "ormqr", "larf", "householder")),
+            ("psf_conv", ("psf_conv",)),
             ("fft", ("fft", "FFT")),
             ("cublas_gemm", ("gemm", "Gemm", "GEMM", "gemv")))
 
@@ -1384,6 +1518,7 @@ def lowrank_path_phase(torch):
     if it != LR_ITERS or any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"low-rank launches {launches}, expected "
                              f"{want} over {LR_ITERS} iterations")
+    check_convolutions(launches, it, "low-rank path")
     if syncs_per_chunk != 1:
         raise AssertionError(f"{syncs_per_chunk} host syncs per chunk, "
                              f"expected 1")
@@ -1493,7 +1628,7 @@ def completion_run(torch, cfg, A, M):
     it = sol.log.iters_run
     chunks = -(-it // LR_CHUNK)
     want = {"jacobi.svd": it, "jacobi.eigh": it + chunks}
-    want.update({k: 0 for k in DECONV_KERNELS + SCDL_KERNELS
+    want.update({k: 0 for k in DECONV_KERNELS + SCDL_KERNELS + PSF_KERNELS
                  + ("condat_elwise.primal_xbar",)})
     r = cfg.rank + cfg.oversample
     if it != LR_ITERS or any(launches[k] != v for k, v in want.items()):
@@ -4152,6 +4287,15 @@ KERNELS = {
         "src/repro_torch/csrc/condat_elwise.cu",
         "src/repro/kernels/condat_elwise/kernel.py:91 under jax.vmap (a "
         "sig per instance: src/repro/core/engine.py:383)"),
+    "psf_conv": ("src/repro_torch/csrc/psf_conv.cu",
+                 "no TPU kernel: jnp.fft.rfft2/irfft2 in "
+                 "src/repro/imaging/psf.py (XLA); H_fp and Ht_fp"),
+    "psf_conv.grad": ("src/repro_torch/csrc/psf_conv.cu",
+                      "no TPU kernel: Ht_fp(HX - Y) in "
+                      "src/repro/imaging/condat.py (XLA)"),
+    "psf_conv.pair": ("src/repro_torch/csrc/psf_conv.cu",
+                      "no TPU kernel: conv_pair_f in "
+                      "src/repro/imaging/psf.py (XLA)"),
 }
 
 

@@ -85,8 +85,9 @@ def grad_data(X, Y, psfs):
 
 def grad_from_HX(HX, Y, kf_pair):
     """grad of 0.5||Y - H(X)||^2 = H^T(H(X) - Y), off the carried H(X)
-    and the precomputed conjugate spectrum."""
-    return psf_op.Ht_fp(HX - Y, kf_pair)
+    and the precomputed conjugate spectrum (the difference formed as the
+    carried H(X) is read)."""
+    return psf_op.Ht_fp_diff(HX, Y, kf_pair)
 
 
 def data_cost_from(HX, Y):

@@ -2,15 +2,21 @@
 
 Port of ``repro.imaging.psf``.  H(X) = [H^0 x^0, ..., H^n x^n]: every
 galaxy stamp is convolved with the PSF at its own sky position.
-FFT-based 'same' convolution on a padded grid (``torch.fft``: cuFFT on
-the card, pocketfft on the CPU); the adjoint is correlation, the
-conjugate spectrum.
+FFT-based 'same' convolution on a padded grid; the adjoint is
+correlation, the conjugate spectrum.
 
-Paired-FFT engine: the grid is the smallest fast FFT size >= 2S - 1
-(81 = 3^4 for S = 41), the kernel spectra are carried as the
-``(kf, conj kf)`` pair so the adjoint never conjugates on the hot path,
-and :func:`conv_pair_f` runs one forward and one adjoint convolution of
-two independent operands as one batched rfft2 -> multiply -> irfft2.
+The grid is the smallest fast FFT size >= 2S - 1 (81 = 3^4 for S = 41);
+the kernel spectra are built once (``rfft2`` of the rolled, zero-padded
+PSFs) and carried as the ``(kf, conj kf)`` pair.  Every convolution off
+a carried spectrum goes through ``kernels/psf_conv``: on the card one
+launch of a hand-written kernel that runs a stamp's whole 2-D transform,
+the spectral product and the inverse in shared memory, reading the
+operand and the spectrum and writing the cropped result, with nothing
+padded ever stored (:func:`Ht_fp_diff` forms the gradient's ``HX - Y``
+on load, :func:`conv_pair_f` runs a forward and an adjoint convolution
+of two operands in one launch, and the power iteration's step adds to
+that pair the division by the last norm and the sums of squares of the
+next); on the CPU the plain ``torch.fft`` version (pocketfft).
 
 Random draws are a seam: :func:`spectral_norm` takes its start vectors
 as ``u0=``/``v0=`` and otherwise draws them from a CPU
@@ -32,6 +38,8 @@ import torch
 
 from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device, to_device
+from repro_torch.kernels.psf_conv import ops as psf_conv
+from repro_torch.kernels.psf_conv.ref import _real
 
 STAMP = 41
 
@@ -70,13 +78,6 @@ def pad_for(stamp: int, kernel: int = 0) -> int:
     return fast_size(stamp + kernel - 1)
 
 
-def _real(x: torch.Tensor) -> torch.Tensor:
-    """FFT operand dtype: half-precision stamps go through the engine in
-    fp32 (results are cast back to the operand dtype by the callers)."""
-    return x if x.is_floating_point() and x.element_size() >= 4 \
-        else x.to(torch.float32)
-
-
 def _fft_kernel(psf: torch.Tensor, pad: int) -> torch.Tensor:
     """Centred PSF -> rfft2 on the padded grid (kernel rolled to the
     origin)."""
@@ -92,13 +93,7 @@ def convolve_f(x: torch.Tensor, kf: torch.Tensor, adjoint: bool = False
                ) -> torch.Tensor:
     """'same' convolution of stamps off a precomputed kernel spectrum.
     Returns a contiguous tensor (the kernels downstream require it)."""
-    s = x.shape[-1]
-    pad = grid_of(kf)
-    xf = torch.fft.rfft2(_real(x), s=(pad, pad))
-    if adjoint:
-        kf = torch.conj(kf)
-    out = torch.fft.irfft2(xf * kf, s=(pad, pad))
-    return out[..., :s, :s].to(x.dtype).contiguous()
+    return psf_conv.convolve(x, kf, conj=adjoint)
 
 
 def convolve(x: torch.Tensor, psf: torch.Tensor, adjoint: bool = False
@@ -149,32 +144,35 @@ def Ht_f(Y: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
 
 def H_fp(X: torch.Tensor, kf_pair: torch.Tensor) -> torch.Tensor:
     """Forward convolution off the carried pair."""
-    return convolve_f(X, kf_pair[..., 0, :, :])
+    return psf_conv.convolve(X, kf_pair[..., 0, :, :])
 
 
 def Ht_fp(Y: torch.Tensor, kf_pair: torch.Tensor) -> torch.Tensor:
     """Adjoint convolution off the carried pair (conjugate precomputed)."""
-    return convolve_f(Y, kf_pair[..., 1, :, :])
+    return psf_conv.convolve(Y, kf_pair[..., 1, :, :])
+
+
+def Ht_fp_diff(A: torch.Tensor, B: torch.Tensor, kf_pair: torch.Tensor
+               ) -> torch.Tensor:
+    """Ht(A - B) off the carried pair, the difference taken as the
+    operand is read (the gradient's Ht(HX - Y): one launch on the card,
+    no intermediate)."""
+    return psf_conv.convolve(A, kf_pair[..., 1, :, :], minus=B)
 
 
 def conv_pair_f(A: torch.Tensor, B: torch.Tensor, kf_pair: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H(A), Ht(B)) for two independent operands in one batched FFT
-    round trip: rfft2 of the stacked (n, 2, S, S) operand, one spectral
-    multiply against the carried pair, one irfft2."""
-    s = A.shape[-1]
-    pad = grid_of(kf_pair)
-    z = torch.stack([_real(A), _real(B)], dim=-3)
-    zf = torch.fft.rfft2(z, s=(pad, pad))
-    out = torch.fft.irfft2(zf * kf_pair, s=(pad, pad))[..., :s, :s]
-    return (out[..., 0, :, :].to(A.dtype).contiguous(),
-            out[..., 1, :, :].to(B.dtype).contiguous())
+    """(H(A), Ht(B)) for two independent operands in one round trip: one
+    launch on the card; on the CPU rfft2 of the stacked (n, 2, S, S)
+    operand, one spectral multiply against the carried pair, one
+    irfft2."""
+    return psf_conv.convolve_pair(A, B, kf_pair)
 
 
 def spectral_norm(psfs: torch.Tensor, iters: int = 60, *, u0=None, v0=None,
                   kf_pair: Optional[torch.Tensor] = None) -> float:
     """||H||_2 via power iteration of the self-adjoint augmented operator
-    A(u, v) = (Ht v, H u), one :func:`conv_pair_f` round trip per step.
+    A(u, v) = (Ht v, H u), one round trip of the pair per step.
 
     ``u0``/``v0`` are the start vectors, shaped like ``psfs`` (the JAX
     module draws them from the two halves of ``split(PRNGKey(0))``).
@@ -223,13 +221,15 @@ def _nbytes(tensors) -> int:
 
 
 def _power_norm(u, v, kf_pair, iters: int) -> torch.Tensor:
-    nrm0 = torch.sqrt(torch.sum(u ** 2) + torch.sum(v ** 2))
-    u, v = u / nrm0, v / nrm0
+    """Each step convolves (u, v) / nrm, the last norm dividing the
+    operands as they are read, and returns its outputs' sums of squares
+    for the next norm (``psf_conv.power_step``: one launch on the card)."""
+    scale = torch.sqrt(torch.sum(u ** 2) + torch.sum(v ** 2))
     nrm = None
     for _ in range(iters):
-        Hu, Htv = conv_pair_f(u, v, kf_pair)
-        nrm = torch.sqrt(torch.sum(Htv ** 2) + torch.sum(Hu ** 2)) + 1e-12
-        u, v = Htv / nrm, Hu / nrm
+        Hu, Htv, sq_hu, sq_htv = psf_conv.power_step(u, v, kf_pair, scale)
+        nrm = torch.sqrt(sq_htv + sq_hu) + 1e-12
+        u, v, scale = Htv, Hu, nrm
     return nrm
 
 

@@ -64,6 +64,8 @@ _SIGNATURES = {
                          _P),
     "repro_jacobi_eigh": (_P, _P, _P, _P, _I, _I, _I, _P),
     "repro_jacobi_svd": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "repro_psf_conv": (_P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _L,
+                       _I, _I, _I, _P),
     # host-only query (no stream): the split of K and the scratch size
     "repro_dict_outer_plan": (_I, _P, _P, _I, _L, _I, _I, _P, _P),
 }

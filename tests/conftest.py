@@ -79,6 +79,11 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (CUDA); skipped without one")
+
+
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)

@@ -3331,7 +3331,7 @@ def sup_overhead(torch, inputs, mesh):
             for owner, name, fn in saved:
                 setattr(owner, name, fn)
 
-    parts = [(drv.IterativeDriver, "_launch_chunk"), (drv, "_host_costs"),
+    parts = [(drv.IterativeDriver, "_launch"), (drv, "_host_costs"),
              (drv, "finite_flag"), (drv, "mesh_flag"),
              (drv, "host_costs_and_flag"), (sv.Supervisor, "begin_chunk"),
              (sv.Supervisor, "validate")]

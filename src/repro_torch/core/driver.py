@@ -1,43 +1,46 @@
 """IterativeDriver and BatchedDriver: the paper's driver program on one
 device.
 
-Port of ``repro.core.driver``:
+Port of ``repro.core.driver``.  Both drivers run one loop over chunks
+(:meth:`_ChunkLoop.run`): K iterations per dispatch through
+``core.engine``'s scan steps, then one host sync that brings the
+chunk's ``(K,)`` cost trace (``(K, B)`` for a bucket), and the chunk's
+bookkeeping.  ``chunk=1`` runs the scan step of one iteration.
 
-- ``chunk=1``  — one step and one host sync per iteration;
-- ``chunk=K>1`` — K iterations per dispatch through
-  ``core.engine.make_scan_step`` / ``make_chunk_cost_step``: the host
-  sees one ``(K,)`` cost trace, one convergence check and one sync per
-  chunk.
-
-Kept exactly: the chunk clamped to ``max_iter``; ``_converged`` with its
-stride rule (costs ``cost_window x stride`` apart when the log repeats
-skipped objectives); ``progress_fn`` and its ``{"stop": True}``
+Kept exactly: the chunk clamped to ``max_iter``; the convergence rule
+with its stride (costs ``cost_window x stride`` apart when the log
+repeats skipped objectives); ``progress_fn`` and its ``{"stop": True}``
 control; the straggler watchdog, which leaves each chunk length's first
 call out (it includes the kernel build and FFT plan creation); the
 runtime checks (``core.checks``: the initial state, the carry contract
 on ``meta`` tensors before the first dispatch, then the costs and the
 state at every host sync) and the checkpoint hook with its cadence rules
 (clamped to ``max_iter``; a chunk that crosses a multiple of the cadence
-checkpoints at its end).  Off, the checks add no operation and no sync.
+checkpoints its final state).  Off, the checks add no operation and no
+sync.
 
-:class:`BatchedDriver` runs one bucket of ``solve_many`` (module
-``core.engine``'s batched steps): per-instance logs and convergence, an
-active mask, re-compaction, the ``cancel_instances`` control and the
-full-bucket checkpoint payload.  One host sync per chunk.
+What differs between the drivers sits behind the loop's hooks: the
+launch (under the ``driver.launch`` span, the ``dispatch`` fault point
+first), the state the finite flag reads, the record of a chunk, the
+checkpoint payload, the decision at the chunk's end, and the snapshot
+and restore that a rollback uses.  :class:`IterativeDriver` runs one
+solve: one log with the straggler watchdog, convergence and ``stop``.
+:class:`BatchedDriver` runs one bucket of ``solve_many``: per-instance
+logs and convergence, an active mask, re-compaction, the
+``cancel_instances`` control and the full-bucket checkpoint payload.
 
 Supervision (``RunOptions.resilience``, ``resilience.supervisor``):
-each chunk's start is pushed onto a ring of references, the dispatch is
-retried on transient faults, and a non-finite objective or state rolls
-the run back (ring first, then the newest valid checkpoint).  The state
-is judged by one device reduction that reaches the host with the
-chunk's costs, so a supervised chunk still syncs once; under a mesh the
-ranks' verdicts are summed in one all-reduce before that transfer, and
-every recovery decision is taken by every rank together
-(``resilience.supervisor``).  Supervised runs
-always take the chunked loop (``chunk=1`` there runs the scan step of
-one iteration, the same math).  The chaos fault points ``dispatch``
-and ``carry_nan`` sit in both loops and in the batched driver; off,
-each costs one ``is None`` check.
+each chunk's start is pushed onto a ring (the driver's snapshot, which
+holds references), the dispatch is retried on transient faults, and a
+non-finite objective or state rolls the run back (ring first, then the
+newest valid checkpoint).  The state is judged by one device reduction
+that reaches the host with the chunk's costs, so a supervised chunk
+still syncs once; under a mesh the ranks' verdicts are summed in one
+all-reduce before that transfer, and every recovery decision is taken
+by every rank together.  The plain and the supervised dispatch are one
+function that differs in the flag it carries with the costs; the chaos
+fault points ``dispatch`` and ``carry_nan`` sit in it and, off, each
+costs one ``is None`` check.
 """
 from __future__ import annotations
 
@@ -59,13 +62,12 @@ from repro_torch.core.engine import (init_batched_cost_like,
                                      make_batched_chunk_cost_step,
                                      make_batched_scan_step,
                                      make_chunk_cost_step, make_scan_step,
-                                     make_step, state_axes)
+                                     state_axes)
 from repro_torch.core.spans import span
 from repro_torch.resilience import chaos as _chaos
 from repro_torch.resilience.errors import DivergenceError
 from repro_torch.resilience.recovery import ResilienceConfig
-from repro_torch.resilience.supervisor import (BatchSupervisor, Supervisor,
-                                               finite_flag,
+from repro_torch.resilience.supervisor import (Supervisor, finite_flag,
                                                host_costs_and_flag,
                                                mesh_flag)
 
@@ -168,7 +170,166 @@ def _host_costs(trace) -> np.ndarray:
         return costs.detach().cpu().numpy()
 
 
-class IterativeDriver:
+class _ChunkLoop:
+    """The loop over chunks that both drivers run (:meth:`run`), and the
+    options it resolves once.  A driver keeps its carry in ``state`` and
+    implements the loop's hooks:
+
+    - ``_begin(start_iter)``: the checks before any dispatch, the start;
+    - ``_live()``: whether anything is left to run;
+    - ``_launch(i, k)``: enqueue the chunk under ``driver.launch``, the
+      ``dispatch`` fault point first -> ``(state, device cost trace)``;
+    - ``_poison(state, i)``: the ``carry_nan`` fault point;
+    - ``_state_tree(state)``: the tree the finite flag and checks read,
+      and ``_live_costs(costs)`` the costs the checks read;
+    - ``_record(costs, dt, i, k, first_call)``: the chunk's log;
+    - ``_checkpoint_payload()``: what ``checkpoint_fn`` receives;
+    - ``_end_chunk(start, k, dt)``: the decision at the chunk's end;
+    - ``_result(start_iter, i)``: what :meth:`run` returns;
+
+    and the supervisor's, through which alone it rewinds a driver:
+    ``snapshot()``, ``restore(snap)``, ``restore_checkpoint(directory,
+    step)`` and ``map_replicated(fn)``."""
+
+    #: what a run is called in the messages of the checks and the
+    #: supervisor ("" for one solve, "bucket " for a bucket)
+    _KIND = ""
+
+    def __init__(self, options: RunOptions):
+        self.options = o = options
+        # a chunk longer than the whole run would never run whole —
+        # clamp so the chunk that runs is the one that was asked for
+        self.chunk = max(min(int(o.chunk), max(int(o.max_iter), 1)), 1)
+        # the same clamp for the checkpoint cadence (0 stays off): a
+        # cadence longer than the run would never fire, and the final
+        # state is what a resume needs
+        self.checkpoint_every = (min(int(o.checkpoint_every),
+                                     max(int(o.max_iter), 1))
+                                 if o.checkpoint_every else 0)
+        if o.cost_every == "chunk":
+            if o.step_fn_cost is None or o.step_fn_light is None:
+                raise ValueError(
+                    'cost_every="chunk" requires step_fn_cost (a '
+                    "standalone objective over the post-iteration "
+                    "state) AND step_fn_light (the cost-free step)")
+            self.cost_every = 1
+        else:
+            if o.step_fn_cost is not None:
+                raise ValueError(
+                    "step_fn_cost is only consumed by the per-chunk "
+                    'objective mode — pass cost_every="chunk" with it, '
+                    f"not cost_every={o.cost_every!r}")
+            self.cost_every = max(int(o.cost_every), 1)
+        # the chunk-granular objective; a chunk of one iteration
+        # evaluates it every iteration anyway, through the plain scan
+        self._cost_per_chunk = o.cost_every == "chunk" and self.chunk > 1
+        self._skips_cost = (self.cost_every > 1
+                            and o.step_fn_light is not None)
+        # with cost skipping the log repeats each evaluated objective:
+        # the convergence rule compares costs cost_window *evaluations*
+        # apart
+        self._stride = (self.chunk if self._cost_per_chunk
+                        else self.cost_every if self._skips_cost else 1)
+        # the supervised run's RecoveryReport (None when unsupervised)
+        self.recovery = None
+        self._steps: Dict[int, Callable] = {}
+
+    def _scan_step(self, k: int) -> Callable:
+        """The K-iteration step, built once per chunk length."""
+        if k not in self._steps:
+            self._steps[k] = self._build_step(k)
+        return self._steps[k]
+
+    def _converged(self, costs: List[float]) -> bool:
+        """The convergence rule over one log's costs: the relative change
+        over ``cost_window`` evaluations is at most ``tol``."""
+        tol = self.options.tol
+        if not tol:
+            return False
+        w = self.options.cost_window * self._stride
+        if len(costs) <= w:
+            return False
+        prev, cur = costs[-w - 1], costs[-1]
+        return abs(prev - cur) <= tol * max(abs(prev), 1e-12)
+
+    # -------------------------------------------------------------- run
+    def run(self, start_iter: int = 0):
+        """Run chunks from ``start_iter`` until ``max_iter``, convergence
+        or a stop; one host sync a chunk."""
+        o = self.options
+        self._begin(start_iter)
+        sup = None
+        if o.resilience is not None:
+            sup = Supervisor(o.resilience, self, self._mesh,
+                             f"{self._KIND}chunk")
+        seen_ks = set()
+        i = start_iter
+        while i < o.max_iter and self._live():
+            k = min(self.chunk, o.max_iter - i)
+            first_call = k not in seen_ks
+            seen_ks.add(k)
+            t0 = time.perf_counter()
+            if sup is not None:
+                # the snapshot, the dispatch with its retries, and the
+                # verdict; a divergence rewinds the run and goes on from
+                # the iteration restored
+                sup.begin_chunk(i)
+                try:
+                    state, costs, finite = sup.dispatch(self._dispatch, i, k)
+                    sup.validate(costs, finite, self._state_tree(state),
+                                 i + k - 1)
+                except DivergenceError as e:
+                    sup.report.wall_time_lost_s += \
+                        time.perf_counter() - t0
+                    i = sup.rollback(e)
+                    continue
+            else:
+                state, costs, _ = self._dispatch(i, k, flagged=False)
+            self.state = state
+            dt = time.perf_counter() - t0
+            if o.checks:
+                _checks.assert_costs_finite(
+                    self._live_costs(costs),
+                    f"{self._KIND}chunk ending at iteration {i + k - 1}")
+                _checks.assert_all_finite(
+                    self._state_tree(state),
+                    f"{self._KIND}state after iteration {i + k - 1}")
+            self._record(costs, dt, i, k, first_call)
+            # a chunk that crosses a multiple of the cadence checkpoints
+            # its final state
+            if (self.checkpoint_every and o.checkpoint_fn is not None
+                    and (i + k) // self.checkpoint_every
+                    > i // self.checkpoint_every):
+                o.checkpoint_fn(self._checkpoint_payload(), i + k - 1)
+            self._end_chunk(i, k, dt)
+            i += k
+        if sup is not None:
+            self.recovery = sup.finalize()
+        return self._result(start_iter, i)
+
+    def _dispatch(self, i: int, k: int, flagged: bool = True):
+        """One chunk: its launch, the ``carry_nan`` fault point, and the
+        chunk's one host sync, which brings its costs and, ``flagged``
+        (supervised), the state's finite flag in the same transfer
+        (under a mesh every rank's, summed in one all-reduce).  Returns
+        ``(state, costs, finite)``; the driver's ``state`` is committed
+        by the loop, so a retry starts again from the chunk's start."""
+        state, costs = self._launch(i, k)
+        if _chaos.is_active():
+            state = self._poison(state, i)
+        if not flagged:
+            return state, _host_costs(costs), True
+        flag = finite_flag(self._state_tree(state))
+        if self._mesh:
+            flag = mesh_flag(flag, self._mesh, self.device)
+        costs, finite = host_costs_and_flag(costs, flag)
+        return state, costs, finite
+
+    def _live_costs(self, costs: np.ndarray) -> np.ndarray:
+        return costs
+
+
+class IterativeDriver(_ChunkLoop):
     """Drive ``step_fn(data, rep, axes) -> (data', out)`` until the
     relative cost change drops below ``tol`` or ``max_iter`` is hit.
     ``out`` is a scalar cost or a dict with a ``"cost"`` entry.
@@ -177,7 +338,8 @@ class IterativeDriver:
     keyword arguments of old (``max_iter=``, ``step_fn_light=``, ...)
     are still taken, deprecated: they are mapped onto ``options`` with a
     ``DeprecationWarning``, and a name that is no field raises
-    ``TypeError``."""
+    ``TypeError``.  The carry ``state`` is ``(data, replicated, last)``,
+    ``last`` the carried output (``None``: the +inf seed)."""
 
     def __init__(self, step_fn: Callable, bundle: Bundle, *,
                  options: Optional[RunOptions] = None, **legacy):
@@ -194,93 +356,24 @@ class IterativeDriver:
                 "options=RunOptions(...) instead", DeprecationWarning,
                 stacklevel=2)
             options = replace(options or RunOptions(), **legacy)
-        self.options = options = options or RunOptions()
+        super().__init__(options or RunOptions())
         self.bundle = bundle
         self.step_fn = step_fn
-        self.step_fn_light = options.step_fn_light
-        self.step_fn_cost = options.step_fn_cost
-        self.update_replicated = options.update_replicated
-        self.light_updates_replicated = options.light_updates_replicated
-        self.max_iter = options.max_iter
-        self.tol = options.tol
-        self.cost_window = options.cost_window
-        self.straggler_factor = options.straggler_factor
-        self.checkpoint_fn = options.checkpoint_fn
-        self.checks = options.checks
-        self.progress_fn = options.progress_fn
-        # a chunk longer than the whole run would never run whole —
-        # clamp so the chunk that runs is the one that was asked for
-        self.chunk = max(min(int(options.chunk),
-                             max(int(options.max_iter), 1)), 1)
-        # the same clamp for the checkpoint cadence (0 stays off): a
-        # cadence longer than the run would never fire, and the final
-        # state is what a resume needs
-        self.checkpoint_every = (min(int(options.checkpoint_every),
-                                     max(int(options.max_iter), 1))
-                                 if options.checkpoint_every else 0)
-        self._per_chunk = options.cost_every == "chunk"
-        if self._per_chunk:
-            if options.step_fn_cost is None or options.step_fn_light is None:
-                raise ValueError(
-                    'cost_every="chunk" requires step_fn_cost (a '
-                    "standalone objective over the post-iteration "
-                    "state) AND step_fn_light (the cost-free step)")
-            self.cost_every = 1
-        else:
-            if options.step_fn_cost is not None:
-                raise ValueError(
-                    "step_fn_cost is only consumed by the per-chunk "
-                    'objective mode — pass cost_every="chunk" with it, '
-                    f"not cost_every={options.cost_every!r}")
-            self.cost_every = max(int(options.cost_every), 1)
+        self.device = bundle.device
+        self._mesh = bundle.axes
         self.log = RunLog()
-        # the supervised run's RecoveryReport (None when unsupervised)
-        self.recovery = None
-        self._steps: Dict[object, Callable] = {}
 
-    # ------------------------------------------------------------ steps
-    def _scan_step(self, k: int) -> Callable:
-        """The K-iteration step, built once per chunk length."""
-        if k not in self._steps:
-            if self._cost_per_chunk:
-                self._steps[k] = make_chunk_cost_step(
-                    self.step_fn_light, self.step_fn_cost, chunk=k,
-                    update_replicated=self.update_replicated,
-                    axes=self.bundle.axes)
-            else:
-                self._steps[k] = make_scan_step(
-                    self.step_fn, chunk=k,
-                    update_replicated=self.update_replicated,
-                    fn_light=self.step_fn_light,
-                    cost_every=self.cost_every,
-                    light_updates_replicated=self.light_updates_replicated,
-                    axes=self.bundle.axes)
-        return self._steps[k]
-
-    @property
-    def _skips_cost(self) -> bool:
-        return self.cost_every > 1 and self.step_fn_light is not None
-
-    @property
-    def _cost_per_chunk(self) -> bool:
-        """Chunk-granular objective; per-step runs (chunk=1) evaluate
-        every iteration anyway, so they take the plain path."""
-        return self._per_chunk and self.chunk > 1
-
-    # ------------------------------------------------------ convergence
-    def _converged(self) -> bool:
-        if not self.tol:
-            return False
-        c = self.log.costs
-        # with cost skipping the log repeats each evaluated objective;
-        # compare costs cost_window *evaluations* apart
-        stride = (self.chunk if self._cost_per_chunk
-                  else self.cost_every if self._skips_cost else 1)
-        w = self.cost_window * stride
-        if len(c) <= w:
-            return False
-        prev, cur = c[-w - 1], c[-1]
-        return abs(prev - cur) <= self.tol * max(abs(prev), 1e-12)
+    def _build_step(self, k: int) -> Callable:
+        o = self.options
+        if self._cost_per_chunk:
+            return make_chunk_cost_step(
+                o.step_fn_light, o.step_fn_cost, chunk=k,
+                update_replicated=o.update_replicated, axes=self.bundle.axes)
+        return make_scan_step(
+            self.step_fn, chunk=k, update_replicated=o.update_replicated,
+            fn_light=o.step_fn_light, cost_every=self.cost_every,
+            light_updates_replicated=o.light_updates_replicated,
+            axes=self.bundle.axes)
 
     def _progress_event(self, start: int, k: int, dt: float) -> dict:
         return {"kind": "chunk", "start": int(start), "iters": int(k),
@@ -289,22 +382,14 @@ class IterativeDriver:
                 "dt_s": float(dt),
                 "converged_at": self.log.converged_at}
 
-    # ------------------------------------------------------ checks
     def _assert_contracts(self, start_iter: int) -> None:
         """checks=True before the first dispatch: the initial state is
-        finite, and the step's carry keeps its structure, shapes and
+        finite, and the scan step's carry keeps its structure, shapes and
         dtypes — found by running the step on ``meta`` tensors."""
         data, rep = self.bundle.data, self.bundle.replicated
         _checks.assert_all_finite({"data": data, "replicated": rep},
                                   "initial bundle state")
-        what = "{} carry (meta tensors, before any dispatch)"
-        if self.chunk == 1:
-            out = _checks.eval_step_spec(self.step_fn, data, rep,
-                                         self.bundle.axes)
-            _checks.assert_carry_stable(data, out[0],
-                                        what.format("per-step data"))
-            return
-        k = min(self.chunk, max(self.max_iter - start_iter, 1))
+        k = min(self.chunk, max(self.options.max_iter - start_iter, 1))
         step = self._scan_step(k)
         if self._cost_per_chunk or self._skips_cost:
             out = _checks.eval_step_spec(
@@ -312,45 +397,16 @@ class IterativeDriver:
         else:
             out = _checks.eval_step_spec(
                 lambda d, r: step(d, r, start_iter), data, rep)
-        _checks.assert_carry_stable((data, rep), (out[0], out[1]),
-                                    what.format("chunked scan"))
+        _checks.assert_carry_stable(
+            (data, rep), (out[0], out[1]),
+            "chunked scan carry (meta tensors, before any dispatch)")
 
     @property
     def _checkpoints_stragglers(self) -> bool:
         """A straggling chunk checkpoints its state, except under a mesh:
         each rank times its own chunks, and a step that one rank alone
         writes is never complete."""
-        return self.checkpoint_fn is not None and not self.bundle.axes
-
-    def _checkpoint(self, data, rep, i: int) -> None:
-        self.checkpoint_fn(self.bundle.with_data(data, replicated=rep), i)
-
-    # -------------------------------------------------------------- run
-    def run(self, start_iter: int = 0) -> Bundle:
-        if self.checks:
-            self._assert_contracts(start_iter)
-        if self.chunk == 1 and self.options.resilience is None:
-            return self._run_per_step(start_iter)
-        # supervised runs take the chunked loop: its chunk boundary is
-        # where snapshots, validation and rollback live
-        return self._run_chunked(start_iter)
-
-    def _launch_chunk(self, data, rep, last, i: int, k: int):
-        """Enqueue one K-iteration dispatch; the ``dispatch`` fault point
-        fires before any of its work is enqueued."""
-        with span("driver.launch"):
-            _chaos.maybe_raise("dispatch", step=i)
-            step = self._scan_step(k)
-            if self._cost_per_chunk or self._skips_cost:
-                data, rep, last, trace = step(data, rep, i, last)
-            else:
-                data, rep, trace = step(data, rep, i)
-        return data, rep, last, trace
-
-    def _dispatch_chunk(self, data, rep, last, i: int, k: int):
-        """One K-iteration dispatch and its host sync."""
-        data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
-        return data, rep, last, _host_costs(trace)
+        return self.options.checkpoint_fn is not None and not self._mesh
 
     @property
     def _parts(self):
@@ -361,163 +417,108 @@ class IterativeDriver:
             return None
         return b.axes.rank, b.axes.size, lambda path: b.record_axis(path[0])
 
-    def _dispatch_supervised(self, data, rep, last, i: int, k: int):
-        """The supervised dispatch: the chunk, the ``carry_nan`` fault
-        point, and one transfer of the costs with the state's finite
-        flag (under a mesh every rank's, summed in one all-reduce)."""
-        data, rep, last, trace = self._launch_chunk(data, rep, last, i, k)
-        if _chaos.is_active():
-            data = _chaos.poison_tree("carry_nan", data, step=i,
-                                      parts=self._parts)
-        flag = finite_flag({"data": data, "replicated": rep})
-        axes = self.bundle.axes
-        if axes:
-            flag = mesh_flag(flag, axes, self.bundle.device)
-        costs, finite = host_costs_and_flag(trace, flag)
-        return data, rep, last, costs, finite
+    # ------------------------------------------------------ loop hooks
+    def _begin(self, start_iter: int) -> None:
+        if self.options.checks:
+            self._assert_contracts(start_iter)
+        self.state = (self.bundle.data, self.bundle.replicated, None)
+        self._start_iter = start_iter
+        self._ema = None
+        self._halted = False
 
-    def _run_chunked(self, start_iter: int) -> Bundle:
-        data, rep = self.bundle.data, self.bundle.replicated
-        last = None                     # the +inf seed (engine.seed_like)
-        sup = None
-        if self.options.resilience is not None:
-            sup = Supervisor(self.options.resilience, self.bundle,
-                             start_iter=start_iter)
-        ema = None
-        seen_ks = set()
-        i = start_iter
-        while i < self.max_iter:
-            k = min(self.chunk, self.max_iter - i)
-            first_call = k not in seen_ks
-            seen_ks.add(k)
-            t0 = time.perf_counter()
-            if sup is not None:
-                sup.begin_chunk(data, rep, last, i, len(self.log.costs))
-                try:
-                    data, rep, last, costs, finite = sup.dispatch(
-                        self._dispatch_supervised, data, rep, last, i, k)
-                    sup.validate(data, rep, costs, finite, i + k - 1)
-                except DivergenceError as e:
-                    sup.report.wall_time_lost_s += \
-                        time.perf_counter() - t0
-                    data, rep, last, i = sup.rollback(e, self.log)
-                    ema = None      # times across a rollback don't compare
-                    continue
+    def _live(self) -> bool:
+        return not self._halted
+
+    def _launch(self, i: int, k: int):
+        """Enqueue one K-iteration dispatch; the ``dispatch`` fault point
+        fires before any of its work is enqueued."""
+        data, rep, last = self.state
+        with span("driver.launch"):
+            _chaos.maybe_raise("dispatch", step=i)
+            step = self._scan_step(k)
+            if self._cost_per_chunk or self._skips_cost:
+                data, rep, last, trace = step(data, rep, i, last)
             else:
-                data, rep, last, costs = self._dispatch_chunk(
-                    data, rep, last, i, k)
-                if _chaos.is_active():
-                    data = _chaos.poison_tree("carry_nan", data, step=i,
-                                              parts=self._parts)
-            dt = time.perf_counter() - t0
-            if self.checks:
-                _checks.assert_costs_finite(
-                    costs, f"chunk ending at iteration {i + k - 1}")
-                _checks.assert_all_finite(
-                    {"data": data, "replicated": rep},
-                    f"state after iteration {i + k - 1}")
-            self.log.times.extend([dt / k] * k)
-            self.log.costs.extend(float(c) for c in np.ravel(costs))
-            # a chunk length's first call builds kernels and FFT plans —
-            # keep it out of the straggler watchdog and its EMA
-            if not first_call:
-                if ema is not None and dt > self.straggler_factor * ema:
-                    self.log.straggler_steps.append(i)
-                    if self._checkpoints_stragglers:
-                        self._checkpoint(data, rep, i + k - 1)
-                ema = dt if ema is None else 0.9 * ema + 0.1 * dt
-            # a chunk that crosses a multiple of the cadence checkpoints
-            # its final state
-            if (self.checkpoint_every and self.checkpoint_fn is not None
-                    and (i + k) // self.checkpoint_every
-                    > i // self.checkpoint_every):
-                self._checkpoint(data, rep, i + k - 1)
-            i += k
-            conv = self._converged()
-            if conv:
-                self.log.converged_at = i - 1
-            if self.progress_fn is not None:
-                ctl = self.progress_fn(self._progress_event(i - k, k, dt))
-                # only a dict return is a control signal
-                if isinstance(ctl, dict) and ctl.get("stop"):
-                    self.log.cancelled_at = i - 1
-                    break
-            if conv:
-                break
+                data, rep, trace = step(data, rep, i)
+        return (data, rep, last), trace
+
+    def _poison(self, state, i: int):
+        data, rep, last = state
+        return (_chaos.poison_tree("carry_nan", data, step=i,
+                                   parts=self._parts), rep, last)
+
+    def _state_tree(self, state) -> Dict[str, Any]:
+        return {"data": state[0], "replicated": state[1]}
+
+    def _record(self, costs, dt: float, i: int, k: int,
+                first_call: bool) -> None:
+        self.log.times.extend([dt / k] * k)
+        self.log.costs.extend(float(c) for c in np.ravel(costs))
+        # a chunk length's first call builds kernels and FFT plans —
+        # keep it out of the straggler watchdog and its EMA
+        if first_call:
+            return
+        if self._ema is not None and \
+                dt > self.options.straggler_factor * self._ema:
+            self.log.straggler_steps.append(i)
+            if self._checkpoints_stragglers:
+                self.options.checkpoint_fn(self._checkpoint_payload(),
+                                           i + k - 1)
+        self._ema = dt if self._ema is None else 0.9 * self._ema + 0.1 * dt
+
+    def _checkpoint_payload(self) -> Bundle:
+        """The bundle at the current state."""
+        data, rep, _ = self.state
+        return self.bundle.with_data(data, replicated=rep)
+
+    def _end_chunk(self, start: int, k: int, dt: float) -> None:
+        """Convergence, then ``progress_fn`` and its ``stop``."""
+        done = start + k
+        conv = self._converged(self.log.costs)
+        if conv:
+            self.log.converged_at = done - 1
+        if self.options.progress_fn is not None:
+            ctl = self.options.progress_fn(
+                self._progress_event(start, k, dt))
+            # only a dict return is a control signal
+            if isinstance(ctl, dict) and ctl.get("stop"):
+                self.log.cancelled_at = done - 1
+                self._halted = True
+        self._halted = self._halted or conv
+
+    def _result(self, start_iter: int, i: int) -> Bundle:
         self.log.iters_run = (self.log.iters_run or 0) + (i - start_iter)
-        if sup is not None:
-            self.recovery = sup.finalize()
-        return self.bundle.with_data(data, replicated=rep)
+        return self._checkpoint_payload()
 
-    def _run_per_step(self, start_iter: int) -> Bundle:
-        data, rep = self.bundle.data, self.bundle.replicated
-        axes = self.bundle.axes
-        step = make_step(self.step_fn, axes)
-        ema = None
-        n_done = 0
-        for i in range(start_iter, self.max_iter):
-            t0 = time.perf_counter()
-            if _chaos.is_active():  # unsupervised: a fault ends the run
-                _chaos.maybe_raise("dispatch", step=i)
-            if self._skips_cost and i % self.cost_every != 0:
-                # off the cost grid: the objective-free step, the last
-                # evaluated cost carried forward
-                if self.light_updates_replicated:
-                    data, aux = self.step_fn_light(data, rep, axes)
-                    if self.update_replicated is not None:
-                        rep = self.update_replicated(rep, aux)
-                else:
-                    data = self.step_fn_light(data, rep, axes)
-                _sync(data)
-                dt = time.perf_counter() - t0
-                self.log.times.append(dt)
-                self.log.costs.append(self.log.costs[-1]
-                                      if self.log.costs else float("inf"))
-            else:
-                data, out = step(data, rep)
-                cost = out["cost"] if isinstance(out, dict) else out
-                cost_val = float(cost)            # the iteration's sync
-                dt = time.perf_counter() - t0
-                self.log.times.append(dt)
-                if self.checks:
-                    _checks.assert_costs_finite(np.asarray([cost_val]),
-                                                f"iteration {i}")
-                    _checks.assert_all_finite(
-                        {"data": data}, f"state after iteration {i}")
-                self.log.costs.append(cost_val)
-                if self.update_replicated is not None:
-                    rep = self.update_replicated(rep, out)
-            if _chaos.is_active():
-                data = _chaos.poison_tree("carry_nan", data, step=i,
-                                          parts=self._parts)
-            if ema is not None and dt > self.straggler_factor * ema:
-                self.log.straggler_steps.append(i)
-                if self._checkpoints_stragglers:
-                    self._checkpoint(data, rep, i)
-            ema = dt if ema is None else 0.9 * ema + 0.1 * dt
-            if (self.checkpoint_every and self.checkpoint_fn is not None
-                    and (i + 1) % self.checkpoint_every == 0):
-                self._checkpoint(data, rep, i)
-            n_done += 1
-            conv = self._converged()
-            if conv:
-                self.log.converged_at = i
-            if self.progress_fn is not None:
-                ctl = self.progress_fn(self._progress_event(i, 1, dt))
-                if isinstance(ctl, dict) and ctl.get("stop"):
-                    self.log.cancelled_at = i
-                    break
-            if conv:
-                break
-        self.log.iters_run = (self.log.iters_run or 0) + n_done
-        return self.bundle.with_data(data, replicated=rep)
+    # ------------------------------------------------- supervisor hooks
+    def snapshot(self):
+        """The chunk-start carry (references, no copy) and the log length
+        at that boundary."""
+        return self.state, len(self.log.costs)
 
+    def restore(self, snap) -> None:
+        self.state, n_logged = snap
+        self._rewind_log(n_logged)
 
-def _sync(data: Dict[str, torch.Tensor]) -> None:
-    """Wait for the device work behind ``data`` (per-step timing)."""
-    dev = next(iter(data.values())).device
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    def restore_checkpoint(self, directory, step: int) -> None:
+        """The checkpoint of iteration ``step``; the carried output
+        restarts from its +inf seed, as after a resume."""
+        from repro_torch.checkpoint import checkpointer as ckpt
+        b = self.bundle
+        state, _ = ckpt.restore(directory, step,
+                                {"data": b.data, "replicated": b.replicated},
+                                records=b.record_range if b.axes else None)
+        self.state = (state["data"], state["replicated"], None)
+        self._rewind_log(max(step - self._start_iter, 0))
+
+    def _rewind_log(self, n_logged: int) -> None:
+        del self.log.costs[n_logged:]
+        del self.log.times[n_logged:]
+        self._ema = None            # times across a rollback don't compare
+
+    def map_replicated(self, fn: Callable) -> None:
+        data, rep, last = self.state
+        self.state = (data, fn(rep), last)
 
 
 # --------------------------------------------------------------------
@@ -533,11 +534,11 @@ def _on_device(mask: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-class BatchedDriver:
+class BatchedDriver(_ChunkLoop):
     """Drive one bucket of stacked instances to per-instance convergence.
 
-    The same options and chunked loop as :class:`IterativeDriver`, over
-    the batched state ``{"d", "r"[, "last"]}`` (``core.engine``: every
+    The same options and loop as :class:`IterativeDriver`, over the
+    batched state ``{"d", "r"[, "last"]}`` (``core.engine``: every
     leaf carries the instance axis; ``data_axes`` names the data leaves
     whose instance axis is not 0) beside the bucket-shared replicated
     tree ``shared``:
@@ -555,7 +556,7 @@ class BatchedDriver:
       so restoring does not depend on when compaction happened;
     - ``RunOptions.resilience`` wraps each chunk in the single driver's
       retry and rollback discipline, its ring holding the bucket's
-      bookkeeping beside its state (``resilience.supervisor``).
+      bookkeeping beside its state (:meth:`snapshot`).
 
     ``orig_indices`` maps each stacked row to its position in the
     caller's list of instances; ``-1`` marks a filler lane, inactive
@@ -573,42 +574,16 @@ class BatchedDriver:
     layout (:meth:`payload_shard`), results are gathered to every rank.
     """
 
+    _KIND = "bucket "
+
     def __init__(self, step_fn: Callable, state: Dict[str, Any],
                  shared: Optional[Dict[str, Any]] = None, *,
                  options: Optional[RunOptions] = None,
                  data_axes: Optional[Dict[str, int]] = None,
                  orig_indices=None, recompact_below: float = 0.5,
                  lane_axes: Optional[Axes] = None):
-        self.options = options = options or RunOptions()
+        super().__init__(options or RunOptions())
         self.step_fn = step_fn
-        self.step_fn_light = options.step_fn_light
-        self.step_fn_cost = options.step_fn_cost
-        self.update_replicated = options.update_replicated
-        self.light_updates_replicated = options.light_updates_replicated
-        self.max_iter = options.max_iter
-        self.tol = options.tol
-        self.cost_window = options.cost_window
-        self.checkpoint_fn = options.checkpoint_fn
-        self.checks = options.checks
-        self.progress_fn = options.progress_fn
-        self.chunk = max(min(int(options.chunk),
-                             max(int(options.max_iter), 1)), 1)
-        self.checkpoint_every = (min(int(options.checkpoint_every),
-                                     max(int(options.max_iter), 1))
-                                 if options.checkpoint_every else 0)
-        self._per_chunk = options.cost_every == "chunk"
-        if self._per_chunk:
-            if options.step_fn_cost is None or options.step_fn_light is None:
-                raise ValueError(
-                    'cost_every="chunk" requires step_fn_cost AND '
-                    "step_fn_light (see IterativeDriver)")
-            self.cost_every = 1
-        else:
-            if options.step_fn_cost is not None:
-                raise ValueError(
-                    "step_fn_cost is only consumed by the per-chunk "
-                    'objective mode — pass cost_every="chunk" with it')
-            self.cost_every = max(int(options.cost_every), 1)
         self.recompact_below = float(recompact_below)
         if set(state) != {"d", "r"}:
             raise ValueError(f'BatchedDriver expects a state {{"d", "r"}} '
@@ -618,8 +593,8 @@ class BatchedDriver:
         self.data_axes = dict(data_axes or {})
         state = dict(state)
         if self._cost_per_chunk:
-            state["last"] = init_batched_cost_like(self.step_fn_cost, state,
-                                                   self.shared)
+            state["last"] = init_batched_cost_like(
+                self.options.step_fn_cost, state, self.shared)
         elif self._skips_cost:
             state["last"] = init_batched_out_like(self.step_fn, state,
                                                   self.shared)
@@ -627,7 +602,8 @@ class BatchedDriver:
         self.axes = state_axes(state, self.data_axes)
         k0, v0 = next(iter(state["d"].items()))
         self.device = v0.device
-        self.lanes = lane_axes if lane_axes is not None else NO_AXES
+        self.lanes = self._mesh = (lane_axes if lane_axes is not None
+                                   else NO_AXES)
         # this rank's rows of the full layout, and every rank's
         self.B0_local = int(v0.shape[self.data_axes.get(k0, 0)])
         B = self.B0_local * self.lanes.size
@@ -647,45 +623,20 @@ class BatchedDriver:
         self.logs = [RunLog(iters_run=0) for _ in range(B)]
         self.retired: Dict[int, Any] = {}    # row -> host instance state
         self._mask = None                    # (live rows, device mask)
-        self.recovery = None                 # the supervised run's report
         self._iters_at_start = self.iters_run.copy()
-        self._steps: Dict[int, Callable] = {}
 
-    @property
-    def _skips_cost(self) -> bool:
-        return self.cost_every > 1 and self.step_fn_light is not None
-
-    @property
-    def _cost_per_chunk(self) -> bool:
-        return self._per_chunk and self.chunk > 1
-
-    def _scan_step(self, k: int) -> Callable:
-        if k not in self._steps:
-            if self._cost_per_chunk:
-                self._steps[k] = make_batched_chunk_cost_step(
-                    self.step_fn_light, self.step_fn_cost, chunk=k,
-                    data_axes=self.data_axes,
-                    update_replicated=self.update_replicated)
-            else:
-                self._steps[k] = make_batched_scan_step(
-                    self.step_fn, chunk=k, data_axes=self.data_axes,
-                    update_replicated=self.update_replicated,
-                    fn_light=self.step_fn_light,
-                    cost_every=self.cost_every,
-                    light_updates_replicated=self.light_updates_replicated)
-        return self._steps[k]
-
-    def _converged_log(self, log: RunLog) -> bool:
-        if not self.tol:
-            return False
-        c = log.costs
-        stride = (self.chunk if self._cost_per_chunk
-                  else self.cost_every if self._skips_cost else 1)
-        w = self.cost_window * stride
-        if len(c) <= w:
-            return False
-        prev, cur = c[-w - 1], c[-1]
-        return abs(prev - cur) <= self.tol * max(abs(prev), 1e-12)
+    def _build_step(self, k: int) -> Callable:
+        o = self.options
+        if self._cost_per_chunk:
+            return make_batched_chunk_cost_step(
+                o.step_fn_light, o.step_fn_cost, chunk=k,
+                data_axes=self.data_axes,
+                update_replicated=o.update_replicated)
+        return make_batched_scan_step(
+            self.step_fn, chunk=k, data_axes=self.data_axes,
+            update_replicated=o.update_replicated, fn_light=o.step_fn_light,
+            cost_every=self.cost_every,
+            light_updates_replicated=o.light_updates_replicated)
 
     @property
     def lane_range(self):
@@ -711,18 +662,6 @@ class BatchedDriver:
             self._mask = (live.copy(), _on_device(live, self.device))
         return self._mask[1]
 
-    def _launch_chunk(self, state, mask, i: int, k: int):
-        """Enqueue one chunk for the bucket (the ``dispatch`` fault point
-        first)."""
-        _chaos.maybe_raise("dispatch", step=i)
-        return self._scan_step(k)(state, self.shared, mask, i)
-
-    def _dispatch_chunk(self, state, mask, i: int, k: int):
-        state, trace = self._launch_chunk(state, mask, i, k)
-        costs = trace["cost"] if isinstance(trace, dict) else trace
-        # every rank's lanes, then the chunk's sync
-        return state, _host_costs(compat.all_gather(costs, self.lanes, 1))
-
     @property
     def _parts(self):
         """``carry_nan``'s layout of the lanes under a mesh: this rank's
@@ -732,26 +671,10 @@ class BatchedDriver:
         return (self.lanes.rank, self.lanes.size,
                 lambda path: self.data_axes.get(path[0], 0))
 
-    def _poison(self, state, i: int):
-        return dict(state, d=_chaos.poison_tree(
-            "carry_nan", state["d"], step=i, parts=self._parts))
-
-    def _dispatch_supervised(self, state, mask, i: int, k: int):
-        """The chunk, the ``carry_nan`` fault point, and one transfer of
-        the (K, B) costs with the state's finite flag (under a mesh every
-        rank's lanes and verdict, gathered and summed first)."""
-        state, trace = self._launch_chunk(state, mask, i, k)
-        if _chaos.is_active():
-            state = self._poison(state, i)
-        costs = trace["cost"] if isinstance(trace, dict) else trace
-        costs = compat.all_gather(costs, self.lanes, 1)
-        flag = finite_flag({"d": state["d"], "r": state["r"]})
-        if self.lanes:
-            flag = mesh_flag(flag, self.lanes, self.device)
-        costs, finite = host_costs_and_flag(costs, flag)
-        return state, costs, finite
-
-    def _log_chunk(self, costs, dt: float, i: int, k: int) -> None:
+    def _record(self, costs, dt: float, i: int, k: int,
+                first_call: bool) -> None:
+        """Each live lane's log, counter and convergence (a bucket has no
+        straggler watchdog)."""
         per = dt / max(k, 1)
         for s, row in enumerate(self.slots):
             row = int(row)
@@ -762,7 +685,7 @@ class BatchedDriver:
             log.times.extend([per] * k)
             self.iters_run[row] += k
             log.iters_run = int(self.iters_run[row])
-            if self._converged_log(log):
+            if self._converged(log.costs):
                 self.active[row] = False
                 self.converged_at[row] = i + k - 1
                 log.converged_at = i + k - 1
@@ -927,6 +850,10 @@ class BatchedDriver:
         self.state = payload["state"]
 
     # ---------------------------------------------------------- results
+    def log_of(self, row: int) -> RunLog:
+        """The :class:`RunLog` of the full layout's row ``row``."""
+        return self.logs[row]
+
     def host_states(self) -> Dict[int, Any]:
         """Each row's final instance state on the host: live lanes
         sliced out of the device state, retired ones from their spills;
@@ -944,57 +871,89 @@ class BatchedDriver:
             out[int(row)] = _persist.slice_instance(host, s, self.axes)
         return out
 
-    # ------------------------------------------------------------- run
-    def run(self, start_iter: int = 0) -> "BatchedDriver":
-        if self.checks:
+    # ------------------------------------------------------ loop hooks
+    def _begin(self, start_iter: int) -> None:
+        if self.options.checks:
             _checks.assert_all_finite(
-                {"data": self.state["d"], "replicated": self.state["r"]},
-                "initial bucket state")
+                self._state_tree(self.state), "initial bucket state")
         self._iters_at_start = self.iters_run.copy()
-        sup = None
-        if self.options.resilience is not None:
-            sup = BatchSupervisor(self.options.resilience, self)
-        i = start_iter
-        while i < self.max_iter and bool(self.active.any()):
-            k = min(self.chunk, self.max_iter - i)
-            t0 = time.perf_counter()
-            live = self.active[self.slots]
-            mask = self._device_mask()
-            if sup is not None:
-                sup.begin_chunk(i)
-                try:
-                    state, costs, finite = sup.dispatch(
-                        self._dispatch_supervised, self.state, mask, i, k)
-                    sup.validate(state, costs, finite, i + k - 1)
-                except DivergenceError as e:
-                    sup.report.wall_time_lost_s += \
-                        time.perf_counter() - t0
-                    i = sup.rollback(e)
-                    continue
-            else:
-                state, costs = self._dispatch_chunk(self.state, mask, i, k)
-                if _chaos.is_active():
-                    state = self._poison(state, i)
-            self.state = state
-            dt = time.perf_counter() - t0
-            if self.checks:
-                _checks.assert_costs_finite(
-                    costs[:, live],
-                    f"bucket chunk ending at iteration {i + k - 1}")
-                _checks.assert_all_finite(
-                    {"data": self.state["d"], "replicated": self.state["r"]},
-                    f"bucket state after iteration {i + k - 1}")
-            self._log_chunk(costs, dt, i, k)
-            if (self.checkpoint_every and self.checkpoint_fn is not None
-                    and (i + k) // self.checkpoint_every
-                    > i // self.checkpoint_every):
-                self.checkpoint_fn(self.snapshot_payload(), i + k - 1)
-            i += k
-            if self.progress_fn is not None:
-                ctl = self.progress_fn(self._progress_event(i - k, k, dt))
-                if isinstance(ctl, dict):
-                    self._apply_control(ctl, i - 1)
-            self._maybe_recompact()
-        if sup is not None:
-            self.recovery = sup.finalize()
+
+    def _live(self) -> bool:
+        return bool(self.active.any())
+
+    def _launch(self, i: int, k: int):
+        """Enqueue one chunk for the bucket (the ``dispatch`` fault point
+        first) and gather every rank's lanes of its (K, B) costs."""
+        with span("driver.launch"):
+            _chaos.maybe_raise("dispatch", step=i)
+            state, trace = self._scan_step(k)(self.state, self.shared,
+                                              self._device_mask(), i)
+            costs = trace["cost"] if isinstance(trace, dict) else trace
+            costs = compat.all_gather(costs, self.lanes, 1)
+        return state, costs
+
+    def _poison(self, state, i: int):
+        return dict(state, d=_chaos.poison_tree(
+            "carry_nan", state["d"], step=i, parts=self._parts))
+
+    def _state_tree(self, state) -> Dict[str, Any]:
+        return {"data": state["d"], "replicated": state["r"]}
+
+    def _live_costs(self, costs: np.ndarray) -> np.ndarray:
+        return costs[:, self.active[self.slots]]
+
+    def _checkpoint_payload(self) -> Dict[str, Any]:
+        return self.snapshot_payload()
+
+    def _end_chunk(self, start: int, k: int, dt: float) -> None:
+        """``progress_fn`` and its controls, then re-compaction."""
+        if self.options.progress_fn is not None:
+            ctl = self.options.progress_fn(
+                self._progress_event(start, k, dt))
+            if isinstance(ctl, dict):
+                self._apply_control(ctl, start + k - 1)
+        self._maybe_recompact()
+
+    def _result(self, start_iter: int, i: int) -> "BatchedDriver":
         return self
+
+    # ------------------------------------------------- supervisor hooks
+    def snapshot(self) -> Dict[str, Any]:
+        """The chunk-start state (references) beside copies of the
+        bookkeeping: the slot map, the active mask, the counters, each
+        lane's log length and the retired lanes."""
+        return {"state": self.state,
+                "slots": self.slots.copy(), "active": self.active.copy(),
+                "iters": self.iters_run.copy(),
+                "conv": self.converged_at.copy(),
+                "logs_len": [len(log.costs) for log in self.logs],
+                "retired": dict(self.retired)}
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        self.slots = snap["slots"].copy()
+        self.active = snap["active"].copy()
+        self.iters_run = snap["iters"].copy()
+        self.converged_at = snap["conv"].copy()
+        self.retired = dict(snap["retired"])
+        for row in range(self.B0):
+            log = self.logs[row]
+            n = snap["logs_len"][row]
+            del log.costs[n:]
+            del log.times[n:]
+            log.iters_run = int(self.iters_run[row])
+            log.converged_at = (int(self.converged_at[row])
+                                if self.converged_at[row] >= 0 else None)
+        self.state = snap["state"]
+
+    def restore_checkpoint(self, directory, step: int) -> None:
+        """The full-bucket payload of iteration ``step``, each lane's log
+        cut back to it."""
+        from repro_torch.checkpoint import checkpointer as ckpt
+        payload, _ = ckpt.restore(directory, step, self.payload_template(),
+                                  device=self.device,
+                                  records=(self.lane_range if self.lanes
+                                           else None))
+        self.load_payload(payload, rewind_logs=True)
+
+    def map_replicated(self, fn: Callable) -> None:
+        self.state = dict(self.state, r=fn(self.state["r"]))

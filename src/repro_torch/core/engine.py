@@ -8,7 +8,9 @@ psums over its mesh axes under ``shard_map``.  JAX fuses a chunk into
 one ``lax.scan`` program; the port runs the K iterations as a Python
 loop that only enqueues device work — every cost stays a 0-d device tensor and the chunk's
 ``(K,)`` trace is stacked on the device, so the driver syncs once per
-chunk when it reads the trace.
+chunk when it reads the trace.  The scan steps made here are the only
+steps the driver's one chunk loop (``core.driver``) runs: a run of
+``chunk=1`` takes the scan step of one iteration.
 
 Cost-skipping semantics are kept exactly:
 
@@ -93,13 +95,6 @@ def _stack_trace(entries):
         return {k: torch.stack([e[k] for e in entries])
                 for k in entries[0]}
     return torch.stack(entries)
-
-
-def make_step(fn: Callable, axes=()):
-    """``step(data, rep) -> (data', out)``: one iteration of ``fn``."""
-    def step(data, rep):
-        return fn(data, rep, axes)
-    return step
 
 
 def make_scan_step(fn: Callable, *, chunk: int = 8,

@@ -168,8 +168,6 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "lowrank": "repro_torch.imaging.lowrank",
     "scdl": "repro_torch.imaging.scdl",
 }
-# workloads of the reference that later slices port (none left)
-_LATER_WORKLOADS: Dict[str, str] = {}
 
 
 def register(name: str):
@@ -198,10 +196,6 @@ def get(name: str) -> Type[Problem]:
     if name not in _REGISTRY and name in _BUILTIN_MODULES:
         importlib.import_module(_BUILTIN_MODULES[name])
     if name not in _REGISTRY:
-        if name in _LATER_WORKLOADS:
-            raise NotImplementedError(
-                f"workload {name!r} is not ported yet (ROADMAP "
-                f"{_LATER_WORKLOADS[name]})")
         raise KeyError(
             f"unknown workload {name!r}; registered workloads: "
             f"{available()}")
@@ -695,7 +689,7 @@ def _run_bucket(problem: Problem, bucket: batching.Bucket, instances,
         b_inst = Bundle(data=data, replicated={**host_shared, **inst["r"]},
                         device=data[next(iter(data))].device,
                         record_axes=rec_axes)
-        log = driver.logs[row]
+        log = driver.log_of(row)
         x, aux = problem.finalize(b_inst, log)
         solutions[j] = Solution(x=x, aux=aux, log=log, bundle=b_inst,
                                 problem=problem, checkpointer=writer,

@@ -18,8 +18,8 @@ RPL101 donated-reuse.
 - every function defined inside a ``make_step_fn``,
   ``make_light_step_fn``, ``make_cost_fn`` or ``make_refresh_fn``
   factory;
-- a function (by name) or lambda passed to ``engine.make_step``,
-  ``make_scan_step``, ``make_chunk_cost_step``,
+- a function (by name) or lambda passed to ``engine.make_scan_step``,
+  ``make_chunk_cost_step``,
   ``make_batched_scan_step``, ``make_batched_chunk_cost_step``,
   ``IterativeDriver(...)`` or ``BatchedDriver(...)``, or to
   ``RunOptions(step_fn_light=, step_fn_cost=, update_replicated=)``
@@ -102,8 +102,8 @@ RPL302 = Rule("RPL302", "host-sync",
 _HOOKS = frozenset({"full_step", "light_step", "cost", "refresh_replicated"})
 _FACTORIES = frozenset({"make_step_fn", "make_light_step_fn", "make_cost_fn",
                         "make_refresh_fn"})
-_STEP_TAKERS = frozenset({"make_step", "make_scan_step",
-                          "make_chunk_cost_step", "make_batched_scan_step",
+_STEP_TAKERS = frozenset({"make_scan_step", "make_chunk_cost_step",
+                          "make_batched_scan_step",
                           "make_batched_chunk_cost_step", "IterativeDriver",
                           "BatchedDriver"})
 _OPTION_KWARGS = frozenset({"step_fn_light", "step_fn_cost",

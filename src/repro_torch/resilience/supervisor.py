@@ -1,22 +1,22 @@
-"""The supervised chunk loop's recovery engine.  Port of
-``repro.resilience.supervisor``, with the batched driver's supervisor
-(the JAX package's ``core.driver._BatchSupervisor``) beside it.
+"""The chunk loop's recovery engine.  Port of
+``repro.resilience.supervisor``; one :class:`Supervisor` serves both
+drivers (the JAX package's ``core.driver._BatchSupervisor`` included).
 
-The drivers stay in charge of *what* runs; this module owns *what
-happens when it fails*:
+The drivers stay in charge of *what* runs and of their own state; this
+module owns *what happens when it fails*, and reaches the driver through
+its snapshot and restore hooks only:
 
-- :meth:`Supervisor.begin_chunk` pushes the chunk-start carry onto the
-  snapshot ring — as references to its tensors on the card.  The JAX
-  package copies every snapshot to the host, because donation consumes
-  its buffers; the port's steps write out of place and donate nothing
-  (``core.persistence.assert_out_of_place``), so the tensors a chunk
-  started from are still intact when it fails, and a snapshot costs no
-  copy and no host sync.  A fault raised partway through enqueuing a
-  chunk leaves work on the stream that writes only into fresh tensors,
-  so the retry from the ring is exact;
+- :meth:`Supervisor.begin_chunk` pushes the driver's chunk-start
+  snapshot onto the ring — references to its tensors on the card.  The
+  JAX package copies every snapshot to the host, because donation
+  consumes its buffers; the port's steps write out of place and donate
+  nothing (``core.persistence.assert_out_of_place``), so the tensors a
+  chunk started from are still intact when it fails, and a snapshot
+  costs no copy and no host sync.  A fault raised partway through
+  enqueuing a chunk leaves work on the stream that writes only into
+  fresh tensors, so the retry from the chunk's start is exact;
 - :meth:`Supervisor.dispatch` wraps one chunk in classify → bounded
-  retry with exponential backoff and seeded jitter, restarting from the
-  newest snapshot;
+  retry with exponential backoff and seeded jitter;
 - :meth:`Supervisor.validate` turns a non-finite objective or state at
   the chunk boundary into a :class:`DivergenceError`.  The state's
   verdict is one device reduction (:func:`finite_flag`) that reaches the
@@ -64,7 +64,6 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -72,7 +71,6 @@ import torch
 
 from repro_torch.core import checks as _checks
 from repro_torch.core import compat
-from repro_torch.core.bundle import Bundle
 from repro_torch.core.checks import leaves_with_path
 from repro_torch.core.spans import span
 from repro_torch.resilience import chaos as _chaos
@@ -220,13 +218,31 @@ class _MeshPlane:
             bound = low
 
 
-class _Budget:
-    """Retry with backoff and the rollback budget, shared by both
-    supervisors."""
+class Supervisor:
+    """Per-run recovery engine; one per driver run.
 
-    def __init__(self, cfg: ResilienceConfig, axes=compat.NO_AXES):
+    It sees the driver through four hooks, so the ring holds whatever
+    the driver's snapshot returns and the rewind is the driver's own:
+
+    - ``driver.snapshot()``: the chunk-start entry of the ring
+      (references to the carry's tensors, and what the driver's
+      bookkeeping needs to rewind to that boundary);
+    - ``driver.restore(entry)``: rewind to a ring entry;
+    - ``driver.restore_checkpoint(directory, step)``: rewind to the
+      checkpoint of iteration ``step``;
+    - ``driver.map_replicated(fn)``: apply the step-size backoff to the
+      broadcast state.
+
+    ``axes`` is the mesh the run spans (``compat.NO_AXES`` without one),
+    ``what`` names the run's chunk in messages ("chunk", "bucket
+    chunk")."""
+
+    def __init__(self, cfg: ResilienceConfig, driver, axes, what: str):
         self.cfg = cfg
+        self.driver = driver
+        self.what = what
         self.report = RecoveryReport()
+        # (iteration, driver snapshot) per chunk start
         self.ring: deque = deque(maxlen=cfg.ring)
         # the chaos seed wins during a drill, so a report replays exactly
         seed = _chaos.active_seed()
@@ -251,16 +267,24 @@ class _Budget:
         return base * (1.0 + self.cfg.jitter
                        * float(self.rng.uniform(-1.0, 1.0)))
 
-    def _retry(self, fn: Callable, args: Tuple, i: int, restart: Callable,
-               what: str):
-        """``fn(*args)`` with classify → bounded retry; each retry
-        starts over from ``restart()``, the newest snapshot's args."""
+    def begin_chunk(self, it: int) -> None:
+        """Push the chunk-start snapshot onto the ring (no copy of the
+        carry)."""
+        self._seq += 1
+        self.ring.append((it, self.driver.snapshot()))
+
+    def dispatch(self, fn: Callable, i: int, k: int):
+        """``fn(i, k)`` with classify → bounded retry.  The driver
+        commits a chunk's carry only once its dispatch returns, so every
+        retry starts from the chunk-start carry, the ring's newest
+        entry."""
+        what = f"{self.what} dispatch"
         attempt = 0
         while True:
             t0 = time.perf_counter()
             n0 = compat.COLLECTIVES["launches"]
             try:
-                out = fn(*args)
+                out = fn(i, k)
                 if self.mesh is not None:
                     self.mesh.check_peers()
                 return out
@@ -293,11 +317,15 @@ class _Budget:
                 t1 = time.perf_counter()
                 self.report.retries += 1
                 time.sleep(self._backoff(attempt))
-                args = restart()
                 self.report.wall_time_lost_s += time.perf_counter() - t1
                 attempt += 1
 
-    def _next_rollback(self, err: DivergenceError, it_of: Callable):
+    def validate(self, costs, finite, state, it: int) -> None:
+        """Raise :class:`DivergenceError` for a non-finite objective or
+        state (``state``: the tree the finite flag read)."""
+        _validate(costs, finite, state, self.what, it, self.rank)
+
+    def _next_rollback(self, err: DivergenceError):
         """Book one rollback and return the ring entry to restore, or
         ``None`` when the ring is dry (the caller goes to disk)."""
         self.report.record_fault("divergence", err.step, err)
@@ -312,9 +340,30 @@ class _Budget:
         # already failed once (and no rescale changes the replay),
         # restoring it again would loop on the same divergence
         if (self.ring and self.cfg.rollback_rescale is None
-                and it_of(self.ring[-1]) == self._last_restored_it):
+                and self.ring[-1][0] == self._last_restored_it):
             self.ring.pop()
         return self.ring.pop() if self.ring else None
+
+    def rollback(self, err: DivergenceError) -> int:
+        """Rewind the driver to the newest ring entry (consumed) or, the
+        ring dry, to the newest valid checkpoint, then apply the optional
+        step-size backoff.  Returns the iteration restored."""
+        entry = self._next_rollback(err)
+        t0 = time.perf_counter()
+        if entry is not None:
+            it, snap = entry
+            self.driver.restore(snap)
+        else:
+            directory, it = self._latest_on_disk(err)
+            self.driver.restore_checkpoint(directory, it)
+            self.report.checkpoint_restores += 1
+        self._last_restored_it = it
+        if self.cfg.rollback_rescale is not None:
+            self.driver.map_replicated(
+                lambda rep: self.cfg.rollback_rescale(
+                    rep, self._rollbacks_done))
+        self.report.wall_time_lost_s += time.perf_counter() - t0
+        return it
 
     def _latest_on_disk(self, err: DivergenceError) -> Tuple[str, int]:
         if self.cfg.checkpoint_dir is None:
@@ -351,154 +400,3 @@ class _Budget:
             self._merged = RecoveryReport.merged(
                 self.mesh.ctl.gather(self.report))
         return self._merged
-
-
-@dataclass(frozen=True)
-class _Snapshot:
-    """The chunk-start carry (references to its tensors) and the log
-    length at that boundary."""
-    it: int
-    n_logged: int
-    data: Any
-    rep: Any
-    last: Any
-
-
-class Supervisor(_Budget):
-    """Per-run recovery engine; one per ``IterativeDriver.run``."""
-
-    def __init__(self, cfg: ResilienceConfig, bundle: Bundle, *,
-                 start_iter: int = 0):
-        super().__init__(cfg, bundle.axes)
-        self.bundle = bundle
-        self.start_iter = start_iter
-
-    def begin_chunk(self, data, rep, last, it: int, n_logged: int) -> None:
-        """Push the chunk-start carry onto the ring (no copy)."""
-        self._seq += 1
-        self.ring.append(_Snapshot(it=it, n_logged=n_logged, data=data,
-                                   rep=rep, last=last))
-
-    def dispatch(self, fn: Callable, data, rep, last, i: int, k: int):
-        """``fn(data, rep, last, i, k)`` with classify → bounded retry,
-        every retry from the chunk-start snapshot."""
-        def restart():
-            s = self.ring[-1]
-            return s.data, s.rep, s.last, i, k
-
-        return self._retry(fn, (data, rep, last, i, k), i, restart,
-                           "chunk dispatch")
-
-    def validate(self, data, rep, costs, finite, it: int) -> None:
-        _validate(costs, finite, {"data": data, "replicated": rep},
-                  "chunk", it, self.rank)
-
-    def rollback(self, err: DivergenceError, log) -> Tuple[Any, Any, Any,
-                                                           int]:
-        """Restore the newest ring entry (consumed) or, the ring dry, the
-        newest valid checkpoint; rewind ``log`` to that boundary.
-        Returns ``(data, replicated, last, iteration)``."""
-        snap = self._next_rollback(err, lambda s: s.it)
-        t0 = time.perf_counter()
-        if snap is not None:
-            data, rep, last = snap.data, snap.rep, snap.last
-            it, n_logged = snap.it, snap.n_logged
-        else:
-            data, rep, last, it, n_logged = self._restore_from_disk(err)
-        self._last_restored_it = it
-        del log.costs[n_logged:]
-        del log.times[n_logged:]
-        if self.cfg.rollback_rescale is not None:
-            rep = self.cfg.rollback_rescale(rep, self._rollbacks_done)
-        self.report.wall_time_lost_s += time.perf_counter() - t0
-        return data, rep, last, it
-
-    def _restore_from_disk(self, err: DivergenceError):
-        from repro_torch.checkpoint import checkpointer as ckpt
-        directory, step = self._latest_on_disk(err)
-        b = self.bundle
-        state, _ = ckpt.restore(directory, step,
-                                {"data": b.data, "replicated": b.replicated},
-                                records=b.record_range if b.axes else None)
-        self.report.checkpoint_restores += 1
-        # the carried output restarts from its +inf seed, as after a
-        # resume
-        return (state["data"], state["replicated"], None, step,
-                max(step - self.start_iter, 0))
-
-
-class BatchSupervisor(_Budget):
-    """Retry and rollback for one ``solve_many`` bucket.  A bucket's
-    recovery state also spans the active mask, the per-instance counters
-    and logs, the slot map and the retired lanes, so its ring entries
-    hold those beside the state's tensors (references again).  The disk
-    fallback restores the full-bucket checkpoint payload
-    (``BatchedDriver.snapshot_payload``)."""
-
-    def __init__(self, cfg: ResilienceConfig, driver):
-        super().__init__(cfg, driver.lanes)
-        self.driver = driver
-
-    def begin_chunk(self, it: int) -> None:
-        d = self.driver
-        self._seq += 1
-        self.ring.append({
-            "it": it, "state": d.state,
-            "slots": d.slots.copy(), "active": d.active.copy(),
-            "iters": d.iters_run.copy(), "conv": d.converged_at.copy(),
-            "logs_len": [len(log.costs) for log in d.logs],
-            "retired": dict(d.retired)})
-
-    def dispatch(self, fn: Callable, state, mask, i: int, k: int):
-        def restart():
-            return self.ring[-1]["state"], mask, i, k
-
-        return self._retry(fn, (state, mask, i, k), i, restart,
-                           "bucket chunk dispatch")
-
-    def validate(self, state, costs, finite, it: int) -> None:
-        _validate(costs, finite, {"data": state["d"],
-                                  "replicated": state["r"]},
-                  "bucket chunk", it, self.rank)
-
-    def _restore(self, snap) -> int:
-        d = self.driver
-        d.slots = snap["slots"].copy()
-        d.active = snap["active"].copy()
-        d.iters_run = snap["iters"].copy()
-        d.converged_at = snap["conv"].copy()
-        d.retired = dict(snap["retired"])
-        for row in range(d.B0):
-            log = d.logs[row]
-            n = snap["logs_len"][row]
-            del log.costs[n:]
-            del log.times[n:]
-            log.iters_run = int(d.iters_run[row])
-            log.converged_at = (int(d.converged_at[row])
-                                if d.converged_at[row] >= 0 else None)
-        d.state = snap["state"]
-        return snap["it"]
-
-    def rollback(self, err: DivergenceError) -> int:
-        snap = self._next_rollback(err, lambda s: s["it"])
-        t0 = time.perf_counter()
-        it = (self._restore(snap) if snap is not None
-              else self._restore_from_disk(err))
-        self._last_restored_it = it
-        if self.cfg.rollback_rescale is not None:
-            d = self.driver
-            d.state = dict(d.state, r=self.cfg.rollback_rescale(
-                d.state["r"], self._rollbacks_done))
-        self.report.wall_time_lost_s += time.perf_counter() - t0
-        return it
-
-    def _restore_from_disk(self, err: DivergenceError) -> int:
-        from repro_torch.checkpoint import checkpointer as ckpt
-        directory, step = self._latest_on_disk(err)
-        d = self.driver
-        payload, _ = ckpt.restore(directory, step, d.payload_template(),
-                                  device=d.device,
-                                  records=d.lane_range if d.lanes else None)
-        d.load_payload(payload, rewind_logs=True)
-        self.report.checkpoint_restores += 1
-        return step

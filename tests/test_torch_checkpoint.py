@@ -319,7 +319,7 @@ def test_resume_off_the_cost_grid(tmp_path):
     assert rest.log.costs[:2] == [float("inf")] * 2
     assert rest.log.costs[2:] == full.log.costs[12:]
     np.testing.assert_array_equal(rest.x, full.x)
-    # the per-step loop logs the seed the same way
+    # chunks of one iteration log the seed the same way
     step1 = solve(key, *inputs, max_iter=16, chunk=1,
                   checkpoint_dir=tmp_path, resume=10, **kw)
     assert step1.log.costs[:2] == [float("inf")] * 2

@@ -2,11 +2,11 @@
 problem that both can state in a few lines: x <- 0.8 x + 0.1, with
 objective sum(x^2).
 
-Every execution mode runs in both packages: per-step and chunked, with
-integer ``cost_every`` (phased on the global iteration index across
-chunk boundaries), the per-chunk objective (``last`` repeated, +inf
-before the first evaluation), tail chunks shorter than the rest, and
-convergence checks at their stride.  The arithmetic is the same fp32 in
+Every execution mode runs in both packages: one iteration a chunk and
+several, plain and supervised, with integer ``cost_every`` (phased on
+the global iteration index across chunk boundaries), the per-chunk
+objective (``last`` repeated, +inf before the first evaluation), tail
+chunks shorter than the rest, and convergence checks at their stride.  The arithmetic is the same fp32 in
 both, so the traces agree to rtol 1e-6 and the iteration counts exactly.
 """
 import jax.numpy as jnp
@@ -63,14 +63,20 @@ RUNS = [(20, 1, 1, 1e-3, 3), (20, 1, 3, 1e-3, 3), (6, 1, "chunk", 0.0, 3),
         (40, 5, 2, 1e-4, 2)]
 
 
+@pytest.mark.parametrize("supervised", [False, True],
+                         ids=["plain", "supervised"])
 @pytest.mark.parametrize("max_iter,chunk,cost_every,tol,window", RUNS)
-def test_driver_matches_jax(max_iter, chunk, cost_every, tol, window):
+def test_driver_matches_jax(max_iter, chunk, cost_every, tol, window,
+                            supervised):
+    """Every mode through the one chunk loop; supervision without a
+    fault takes the same trajectory."""
     kw = dict(max_iter=max_iter, chunk=chunk, cost_every=cost_every,
               tol=tol, cost_window=window)
     want = jproblem.solve(JaxToy(), X0, **kw)
     events = []
+    sup = {"resilience": ResilienceConfig()} if supervised else {}
     got = problem.solve(TorchToy(), X0, device="cpu",
-                        progress_fn=events.append, **kw)
+                        progress_fn=events.append, **kw, **sup)
     assert got.log.iters_run == want.log.iters_run
     assert got.log.converged_at == want.log.converged_at
     jc, tc = np.asarray(want.log.costs), np.asarray(got.log.costs)

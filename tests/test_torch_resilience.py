@@ -232,8 +232,8 @@ def test_fault_free_supervised_run_is_clean(workload, data, jax_refs,
 
 
 def test_per_step_supervised_run_takes_the_chunked_loop(data, port_refs):
-    """``chunk=1`` under supervision runs the chunked loop's one-step
-    scan: the same trajectory as the unsupervised per-step loop."""
+    """``chunk=1`` under supervision runs the loop's one-step scan, as
+    an unsupervised run does: a rollback replays the same trajectory."""
     want = _tsolve("deconvolve", data, chunk=1)
     cc = chaos.ChaosConfig.parse("carry_nan@5;seed=3")
     with chaos.active_chaos(cc):
@@ -257,7 +257,7 @@ def test_unsupervised_chaos_fault_is_fatal(spec, data):
 
 
 def test_unsupervised_per_step_faults(data):
-    """The per-step loop keeps both fault points: ``dispatch`` ends the
+    """A ``chunk=1`` run keeps both fault points: ``dispatch`` ends the
     run, ``carry_nan`` poisons it silently (no checks, no supervisor)."""
     with chaos.active_chaos(chaos.ChaosConfig.parse("dispatch@2")):
         with pytest.raises(InjectedFault):

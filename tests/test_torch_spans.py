@@ -4,7 +4,7 @@ Under ``torch.profiler.profile`` a small sparse deconvolution, a small
 low-rank one and a small SCDL training record the spans of
 ``core.spans``' docstring, each inside the span that calls it, siblings
 disjoint, one ``driver.launch`` and one ``driver.sync`` a chunk
-(supervised too), one ``lowrank.svt`` an iteration and one
+(supervised too, and for a ``solve_many`` bucket), one ``lowrank.svt`` an iteration and one
 ``lowrank.nuclear`` a chunk.  The profiler changes no result, and with
 none running no ``record_function`` is made."""
 import numpy as np
@@ -12,7 +12,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core.problem import solve
+from repro_torch.core.problem import solve, solve_many
 from repro_torch.core.spans import PREFIX
 from repro_torch.data.synthetic import coupled_patches
 from repro_torch.imaging import psf, starlet
@@ -170,6 +170,29 @@ def test_lowrank_spans_per_chunk(profiled):
         inside = [n for n, s0, s1 in spans if a <= s0 and s1 <= b]
         assert inside.count("lowrank.svt") == CHUNK
         assert inside.count("lowrank.nuclear") == 1
+
+
+@pytest.mark.parametrize("supervised", [False, True],
+                         ids=["plain", "supervised"])
+def test_bucket_spans_per_chunk(supervised):
+    """A ``solve_many`` bucket runs the same chunk loop: each chunk is
+    one ``driver.launch`` followed by one ``driver.sync``."""
+    insts = []
+    for seed in (0, 1):
+        d = psf.simulate(4, torch.Generator().manual_seed(seed), stamp=15,
+                         device="cpu")
+        insts.append((d.Y, d.psfs))
+    kw = {"resilience": ResilienceConfig()} if supervised else {}
+
+    def run():
+        return solve_many("deconvolve", insts, cfg=SolverConfig(n_scales=3),
+                          device="cpu", max_iter=ITERS, chunk=CHUNK,
+                          tol=0.0, **kw)
+
+    sols, spans = _profiled(run)
+    assert [s.log.iters_run for s in sols] == [ITERS, ITERS]
+    loop = [n for n, _, _ in spans if n in ("driver.launch", "driver.sync")]
+    assert loop == ["driver.launch", "driver.sync"] * CHUNKS
 
 
 def test_injected_test_matrix_is_no_draw():

@@ -137,7 +137,12 @@ class Problem:
 @dataclass
 class Solution:
     """What ``solve()`` returns: the primary result ``x`` (numpy),
-    secondary outputs ``aux``, the driver's log, and the final bundle."""
+    secondary outputs ``aux``, the driver's log, and the final bundle.
+
+    An ``x`` gathered from the card (``bundle.gather_leaf``) lives in
+    page-locked host memory that the caller owns until it drops ``x``
+    and every view of it; such results hold at most 1 GiB together, and
+    past that ``x`` comes back in pageable memory."""
     x: Any
     aux: Dict[str, Any]
     log: RunLog

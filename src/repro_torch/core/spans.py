@@ -17,7 +17,12 @@ chunk) and ``driver.sync`` (the chunk's one host sync) inside
 ``solve.run``; ``lowrank.svt`` (one randomized SVT,
 ``imaging.lowrank.randomized_svt_local``) and ``lowrank.nuclear`` (the
 range finder's nuclear norm, ``imaging.lowrank.nuclear_norm_rf``)
-wherever they are called, inside ``driver.launch`` in a solve.
+wherever they are called, inside ``driver.launch`` in a solve;
+``completion.draws`` (the completion's default test matrix drawn on the
+host and copied to the device, when none is injected) inside
+``solve.init``, and ``completion.grad`` (the completion's masked
+gradient step, once an iteration) inside ``driver.launch``
+(``imaging.lowrank.LowRankCompletionProblem``).
 """
 from __future__ import annotations
 

@@ -52,6 +52,7 @@ The workload :class:`LowRankCompletionProblem` (registered
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -204,14 +205,18 @@ class LowRankCompletionProblem(Problem):
         Y = to_device(Y, device, torch.float32)
         M = to_device(M, device, torch.float32)
         data = {"Y": Y * M, "M": M, "X": Y * M}
-        omega = resolve_omega(self.omega, Y.shape[1], self.cfg.rank,
-                            self.cfg.oversample, device)
+        # the default test matrix is a host draw and its copy
+        with span("completion.draws") if self.omega is None \
+                else nullcontext():
+            omega = resolve_omega(self.omega, Y.shape[1], self.cfg.rank,
+                                  self.cfg.oversample, device)
         return Bundle.create(data, device=device,
                              replicated={"omega": omega}, mesh=mesh)
 
     def _iterate(self, d, rep, axes):
         cfg = self.cfg
-        X_half = d["X"] - cfg.step * _masked_residual(d)
+        with span("completion.grad"):
+            X_half = d["X"] - cfg.step * _masked_residual(d)
         X_new = randomized_svt_local(X_half, rep["omega"],
                                      cfg.lam * cfg.step, axes=axes)
         return dict(d, X=X_new)

@@ -1,11 +1,13 @@
 """The port's profiler spans (``repro_torch.core.spans``).
 
 Under ``torch.profiler.profile`` a small sparse deconvolution, a small
-low-rank one and a small SCDL training record the spans of
-``core.spans``' docstring, each inside the span that calls it, siblings
-disjoint, one ``driver.launch`` and one ``driver.sync`` a chunk
-(supervised too, and for a ``solve_many`` bucket), one ``lowrank.svt`` an iteration and one
-``lowrank.nuclear`` a chunk.  The profiler changes no result, and with
+low-rank one, a small completion and a small SCDL training record the
+spans of ``core.spans``' docstring, each inside the span that calls it,
+siblings disjoint, one ``driver.launch`` and one ``driver.sync`` a chunk
+(supervised too, and for a ``solve_many`` bucket), one ``lowrank.svt``
+an iteration and one ``lowrank.nuclear`` a chunk, and in the completion
+one ``completion.grad`` an iteration and one ``completion.draws`` when
+no test matrix is injected.  The profiler changes no result, and with
 none running no ``record_function`` is made."""
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from repro_torch.data.synthetic import coupled_patches
 from repro_torch.imaging import psf, starlet
 from repro_torch.imaging.condat import SolverConfig
 from repro_torch.imaging.deconvolve import DeconvolutionProblem
+from repro_torch.imaging.lowrank import (CompletionConfig,
+                                         LowRankCompletionProblem)
 from repro_torch.imaging.scdl import SCDLConfig
 from repro_torch.resilience.recovery import ResilienceConfig
 
@@ -30,7 +34,9 @@ PARENT = {"solve": None, "solve.init": "solve", "solve.run": "solve",
           "solve.finalize": "solve", "deconvolve.draws": "solve.init",
           "deconvolve.norms": "solve.init", "driver.launch": "solve.run",
           "driver.sync": "solve.run", "lowrank.svt": "driver.launch",
-          "lowrank.nuclear": "driver.launch"}
+          "lowrank.nuclear": "driver.launch",
+          "completion.draws": "solve.init",
+          "completion.grad": "driver.launch"}
 
 
 def _deconvolve(**kw):
@@ -61,7 +67,20 @@ def _scdl(**kw):
     return sol.x, sol.log.costs
 
 
-RUNS = {"deconvolve": _deconvolve, "lowrank": _lowrank, "scdl": _scdl}
+def _completion(omega=None, **kw):
+    g = torch.Generator().manual_seed(3)
+    A = torch.randn((40, 2), generator=g) @ torch.randn((2, 30), generator=g)
+    M = (torch.rand((40, 30), generator=g) < 0.6).float()
+    problem = LowRankCompletionProblem(
+        CompletionConfig(rank=4, oversample=4, lam=0.2, step=0.9),
+        omega=omega)
+    sol = solve(problem, A * M, M, device="cpu", max_iter=ITERS,
+                chunk=CHUNK, tol=0.0, cost_every="chunk", **kw)
+    return sol.x, sol.log.costs
+
+
+RUNS = {"deconvolve": _deconvolve, "lowrank": _lowrank, "scdl": _scdl,
+        "completion": _completion}
 
 
 def _profiled(run, **kw):
@@ -127,6 +146,15 @@ def test_spans_nest_as_the_call_stack(profiled, kind, supervised):
         assert names.count("deconvolve.norms") == 1
         assert names.count("lowrank.svt") == ITERS
         assert names.count("lowrank.nuclear") == CHUNKS
+        assert "completion.grad" not in names
+    elif kind == "completion":
+        # the test matrix; a masked step and an SVT an iteration, a
+        # nuclear norm a chunk (cost_every="chunk")
+        assert names.count("completion.draws") == 1
+        assert names.count("completion.grad") == ITERS
+        assert names.count("lowrank.svt") == ITERS
+        assert names.count("lowrank.nuclear") == CHUNKS
+        assert "deconvolve.draws" not in names
     else:
         assert "deconvolve.draws" not in names
         assert "deconvolve.norms" not in names
@@ -153,6 +181,7 @@ def test_no_record_function_without_a_profiler(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", counting)
     _deconvolve()
     _lowrank()
+    _completion()
     _scdl(resilience=ResilienceConfig())
     assert made == []
     # the count sees the spans when a profiler records
@@ -170,6 +199,19 @@ def test_lowrank_spans_per_chunk(profiled):
         inside = [n for n, s0, s1 in spans if a <= s0 and s1 <= b]
         assert inside.count("lowrank.svt") == CHUNK
         assert inside.count("lowrank.nuclear") == 1
+
+
+def test_completion_spans_per_iteration(profiled):
+    """Each chunk's launch holds its iterations' masked steps, each
+    followed by its SVT, and at its end the chunk's one nuclear norm."""
+    _, spans = profiled("completion")
+    launches = [(a, b) for n, a, b in spans if n == "driver.launch"]
+    assert len(launches) == CHUNKS
+    for a, b in launches:
+        inside = [n for n, s0, s1 in spans
+                  if a <= s0 and s1 <= b and n != "driver.launch"]
+        assert inside == ["completion.grad", "lowrank.svt"] * CHUNK + [
+            "lowrank.nuclear"]
 
 
 @pytest.mark.parametrize("supervised", [False, True],
@@ -206,5 +248,19 @@ def test_injected_test_matrix_is_no_draw():
     names = [s[0] for s in injected]
     assert names.count("deconvolve.draws") == 1
     assert [s[0] for s in default].count("deconvolve.draws") == 2
+    np.testing.assert_array_equal(x0, x1)
+    assert c0 == c1
+
+
+def test_completion_injected_test_matrix_is_no_draw():
+    """The completion's test matrix is drawn under ``completion.draws``
+    only when the caller injects none; injected, nothing is drawn, and
+    the result is the one of the default draw."""
+    from repro_torch.imaging import lowrank
+    omega = lowrank.make_test_matrix(30, 4, 4)
+    (x0, c0), default = _profiled(_completion)
+    (x1, c1), injected = _profiled(_completion, omega=omega)
+    assert [s[0] for s in default].count("completion.draws") == 1
+    assert "completion.draws" not in [s[0] for s in injected]
     np.testing.assert_array_equal(x0, x1)
     assert c0 == c1
